@@ -1,0 +1,102 @@
+"""Build the CUDA kernels with nvcc at first use and load them with ctypes.
+
+The sources in ``csrc/`` are compiled into a shared library with a
+plain C interface (no PyTorch headers, so the build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o <lib> csrc/campaign_sweep.cu
+
+The library lands in ``build/repro_torch_kernels/`` under the
+repository root, named by a hash of the sources and flags, so an edited
+source rebuilds and an unchanged one loads the cached library.  Nothing
+is built or imported at module import: :func:`library` does it on the
+first kernel launch.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+__all__ = ["SOURCES", "NVCC_FLAGS", "build_dir", "library",
+           "last_build_seconds"]
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (_CSRC / "campaign_sweep.cu",)
+# IEEE division and square root, no fast math: the allocator's floors
+# depend on every f32 operation rounding on its own
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+last_build_seconds: Optional[float] = None
+
+
+def build_dir() -> Path:
+    """``build/repro_torch_kernels`` under the repository root."""
+    return Path(__file__).resolve().parents[3] / "build" / \
+        "repro_torch_kernels"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    default = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on "
+                       "the machine with the card (CUDA toolkit on PATH "
+                       "or under $CUDA_HOME)")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _compile(out: Path) -> None:
+    global last_build_seconds
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                           f"{' '.join(cmd)}\n{proc.stderr}")
+    os.replace(tmp, out)                 # atomic: readers never see half
+    last_build_seconds = time.perf_counter() - t0
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.campaign_alloc.argtypes = [p, p, p, i, i, p]
+    lib.campaign_advance.argtypes = [p, p, p, p, i, i, p]
+    lib.campaign_bill.argtypes = [p, p, p, p, p, i, i, i, p]
+    for fn in (lib.campaign_alloc, lib.campaign_advance, lib.campaign_bill):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if its hash is new."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            out = build_dir() / f"campaign_sweep-{_digest()}.so"
+            if not out.exists():
+                _compile(out)
+            _lib = _bind(ctypes.CDLL(str(out)))
+        return _lib

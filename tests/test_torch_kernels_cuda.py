@@ -1,0 +1,117 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every test here carries the ``cuda`` marker and skips without an NVIDIA
+GPU (a CUDA kernel has no CPU mode).  The file imports neither JAX nor
+the JAX package, so it also runs on the card's machine, which has no
+JAX; the repository's conftest imports JAX, hence ``--noconftest``:
+
+    PYTHONPATH=src python -m pytest --noconftest -m cuda \\
+        tests/test_torch_kernels_cuda.py
+
+The row generators are shared with ``test_torch_campaign_ops.py``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+
+
+def alloc_rows(seed, R, C, hi=30):
+    """Random count rows plus the allocator's edge cases: k = 0,
+    k = total, k > total, an empty row, and totals near 2**20."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, hi, (R, C)).astype(np.int32)
+    counts[3] = 0                                  # tot = 0
+    counts[4] = rng.integers(0, 2 ** 20 // C, C)   # tot near 2**20
+    tot = counts.sum(1)
+    k = rng.integers(0, 40, R).astype(np.int32)
+    k[0], k[1], k[2], k[3] = 0, tot[1], tot[2] + 7, 5
+    k[4] = tot[4] - 1
+    return counts, k
+
+
+def fma_flip_rows(seed, R, C):
+    """Rows where ``inc * s + 1e-3`` lands within an f32 ulp of an
+    integer, chosen so that one fused multiply-add (a single rounding)
+    floors some cell differently from the multiply and the add rounded
+    separately: the allocator is exact only with two roundings."""
+    rng = np.random.default_rng(seed)
+    found_c, found_k = [], []
+    while len(found_c) < R:
+        counts = rng.integers(0, 100000, (4096, C)).astype(np.int32)
+        tot = counts.sum(1)
+        k = rng.integers(1, np.maximum(tot, 1) + 1).astype(np.int32)
+        s = (k.astype(np.float32) / np.maximum(tot, 1).astype(np.float32))
+        inc = np.cumsum(counts, 1).astype(np.float32)
+        two = np.floor(inc * s[:, None] + np.float32(1e-3))
+        # f32 x f32 is exact in f64, so this rounds once, like an FMA
+        fused = np.floor((inc.astype(np.float64) * s[:, None]
+                          + np.float32(1e-3)).astype(np.float32))
+        rows = np.nonzero((two != fused).any(1))[0]
+        found_c.extend(counts[rows])
+        found_k.extend(k[rows])
+    return np.array(found_c[:R]), np.array(found_k[:R])
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _on(a, dev):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,C", [(10200, 18), (1020, 10), (64, 18)])
+def test_alloc_kernel_equals_plain_version(cuda, R, C):
+    counts, k = alloc_rows(R, R, C)
+    counts[-64:], k[-64:] = fma_flip_rows(C, 64, C)
+    c_d, k_d = _on(counts, cuda), _on(k, cuda)
+    before = ops.LAUNCHES["campaign_preempt"]
+    got = ops.campaign_preempt(c_d, k_d)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["campaign_preempt"] == before + 1
+    assert torch.equal(got, ref.campaign_alloc_ref(c_d, k_d))
+
+
+@pytest.mark.cuda
+def test_advance_and_bill_kernels_equal_plain_versions(cuda):
+    rng = np.random.default_rng(3)
+    busy = _on(rng.integers(0, 200, (10200, 16)).astype(np.int32), cuda)
+    mask = _on((np.arange(16)[None, :] >= rng.integers(8, 16, (10200, 1)))
+               .astype(np.int32), cuda)
+    adv, fin = ops.campaign_advance(busy, mask)
+    adv_p, fin_p = ref.campaign_advance_ref(busy, mask)
+    assert torch.equal(adv, adv_p) and torch.equal(fin, fin_p)
+    live = _on(rng.integers(0, 500, (1020, 10)).astype(np.int32), cuda)
+    rate = _on(rng.uniform(0, 1, (1020, 10)).astype(np.float32), cuda)
+    onehot = _on(np.eye(3, dtype=np.float32)[rng.integers(0, 3, 10)], cuda)
+    spent, prov = ops.campaign_bill(live, rate, onehot)
+    spent_p, prov_p = ref.campaign_bill_ref(live, rate, onehot)
+    torch.testing.assert_close(spent, spent_p, rtol=1e-6, atol=0)
+    torch.testing.assert_close(prov, prov_p, rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+def test_sweep_through_kernels_equals_plain_path(cuda):
+    """The engine on the card, kernels vs plain versions, same draws:
+    identical rows (the CUDA twin of the JAX package's Pallas-interpret
+    vs oracle-path test)."""
+    from dataclasses import replace
+    from repro_torch.core.api import sweep
+    from repro_torch.core.scenarios import planning_grid
+    specs = [replace(s, duration_h=48.0) for s in planning_grid()[:4]]
+    ops.reset_launches()
+    got = sweep(specs, [0, 1])
+    assert ops.LAUNCHES == {"campaign_preempt": 384, "campaign_match": 192,
+                            "campaign_advance": 192, "campaign_bill": 192}
+    want = sweep(specs, [0, 1], use_kernels=False)
+    for a, b in zip(got.rows, want.rows):
+        assert a["cost"] == pytest.approx(b["cost"], rel=1e-5)
+        for k in ("preemptions", "jobs_finished", "nat_drops",
+                  "by_provider", "events_fired"):
+            assert a[k] == b[k], k
