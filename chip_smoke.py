@@ -22,7 +22,24 @@ Phases (any failure raises and exits non-zero with no result line):
   4. profile the device's busy share of a 24 h grid sweep at the same
              widths (torch.profiler kernel time over wall time);
   5. data    the data-plane golden spec at 64 seeds, the same checks as 3;
-  6. report  a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+  6. flash   the flash attention kernel against its plain version at the
+             yi-9b shape (B=2, S=4096, H=32, Hkv=4, D=128, causal) and the
+             edge shapes of tests/test_kernels.py, plus q_offset and
+             kv_len cases, in f32 (2e-5) and bf16 (2e-2); per case the
+             per-call time (CUDA events), device time (profiler), plain
+             version's time, scaled_dot_product_attention's time (the
+             library yardstick, never called by the port) and the bound;
+  7. forward yi-9b at full width and depth (48 layers, random weights
+             from the port's own init_params): forward_loss at B=2,
+             S=4096 in bf16 and B=1, S=4096 in f32, each through the flash
+             kernel (48 launches) and through its plain version: finite
+             loss within 2.0 of ln 64000, kernel vs plain within 1e-2
+             (bf16) / 1e-4 (f32) relative; tokens/s; a profiled forward;
+  8. serve   BatchServer(slots=4, max_len=128) on the same weights answers
+             8 requests (prompts of 4-12 tokens, 16 new tokens each); every
+             token below 64000; prefill logits == token-by-token decode
+             logits within 1e-3 (f32); decode tokens/s;
+  9. report  a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
              ``{"ok": true, "device": {...}}``.
 
 Exits 2 without a card or without the repository's ``src/`` beside it.
@@ -43,13 +60,16 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
 FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
 CU_SOURCE = "src/repro_torch/kernels/csrc/campaign_sweep.cu"
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 REPLACES = {
     "campaign_preempt": "src/repro/kernels/campaign_sweep.py:69",
     "campaign_match": "src/repro/kernels/campaign_sweep.py:76",
     "campaign_advance": "src/repro/kernels/campaign_sweep.py:93",
     "campaign_bill": "src/repro/kernels/campaign_sweep.py:117",
 }
+FLASH_REPLACES = "src/repro/kernels/flash_attention.py:79"
 INT_COUNTERS = ("preemptions", "jobs_finished", "nat_drops")
 REL = 1e-5
 
@@ -109,10 +129,10 @@ def alloc_inputs(rng, R: int, C: int, hi: int):
     return counts, k
 
 
-def time_ms(fn, iters: int = 200) -> float:
+def time_ms(fn, iters: int = 200, warmup: int = 10) -> float:
     """Mean ms per call: CUDA events around ``iters`` back-to-back calls
     after a warm-up (the wrapper's host time is inside the window)."""
-    for _ in range(10):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -144,16 +164,25 @@ def device_ms(fn, kernel: str, calls: int = 50):
     def many():
         for _ in range(calls):
             fn()
-    hits = [e for e in profiled(many) if kernel in e.key]
-    if not hits:
+    for attempt in range(2):
+        # a short window sometimes comes back with no device events at
+        # all; take a second window before calling it unmeasured
+        seen = profiled(many)
+        hits = [e for e in seen if kernel in e.key]
+        if hits:
+            break
+        log(f"[profile] window {attempt + 1}: no {kernel} among "
+            f"{len(seen)} device events")
+    else:
         return None
     return sum(e.self_device_time_total for e in hits) \
         / sum(e.count for e in hits) / 1e3
 
 
-def bound(nbytes: int, flops: int):
+def bound(nbytes: int, flops: int, peak: float = FP32_FLOPS_PER_S):
+    """The least time (ms) for the work, and which term bounds it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -273,7 +302,8 @@ def drive(label, specs, seeds):
     t_plain = time.perf_counter() - t0
 
     expect = {"campaign_preempt": 2 * n_ticks, "campaign_match": n_ticks,
-              "campaign_advance": n_ticks, "campaign_bill": n_ticks}
+              "campaign_advance": n_ticks, "campaign_bill": n_ticks,
+              "flash_attention": 0}
     if launches != expect:
         fail(f"{label}: launches {launches}, expected {expect}")
     if len(got.rows) != lanes:
@@ -334,6 +364,291 @@ def profile_window(specs, seeds) -> None:
             f"{e.count:7d}x  {e.key[:90]}")
 
 
+# -- phase 6: the flash attention kernel against its plain version -------
+
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# (label, model layout?, shapes, kwargs); model layout: B, Sq, Skv, H,
+# Hkv, D, causal; kernel layout: BHG, BKV, Sq, Skv, D and the keywords
+FLASH_CASES = [
+    ("yi-9b", True, (2, 4096, 4096, 32, 4, 128, True), {}),
+    ("d64-gqa", True, (2, 256, 256, 4, 2, 64, True), {}),
+    ("mqa-noncausal", True, (1, 128, 384, 2, 1, 128, False), {}),
+    ("d80-ragged", True, (2, 96, 160, 2, 2, 80, True), {}),
+    ("q_offset", False, (64, 8, 512, 1536, 128),
+     {"causal": True, "q_offset": 1024}),
+    ("kv_len", False, (64, 8, 256, 1024, 128),
+     {"causal": False, "kv_len": 700}),
+]
+
+
+def valid_pairs(Sq: int, Skv: int, causal: bool, kv_len=None,
+                q_offset: int = 0) -> int:
+    """(query, key) pairs the mask lets through: the work these inputs
+    need (about half of Sq * Skv when causal)."""
+    lim = Skv if kv_len is None else min(Skv, kv_len)
+    if not causal:
+        return Sq * lim
+    i = np.arange(Sq)
+    return int(np.clip(q_offset + i + 1, 0, lim).sum())
+
+
+def check_flash(dev) -> dict:
+    """Every case in f32 and bf16: kernel vs plain version within the
+    tolerance, then the timings.  Returns {(label, dtype): numbers}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(12)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, model, shape, kw in FLASH_CASES:
+            if model:
+                B, Sq, Skv, H, Hkv, D, causal = shape
+                q_shape, kv_shape = (B, Sq, H, D), (B, Skv, Hkv, D)
+            else:
+                BHG, BKV, Sq, Skv, D = shape
+                q_shape, kv_shape = (BHG, Sq, D), (BKV, Skv, D)
+                B, H, Hkv, causal = BKV, BHG // BKV, 1, kw["causal"]
+            q, k, v = (torch.randn(s, generator=gen, device=dev).to(dtype)
+                       for s in (q_shape, kv_shape, kv_shape))
+            if model:
+                def kern():
+                    return ops.flash_attention(q, k, v, causal=causal)
+
+                def plain():
+                    return ref.flash_attention_model_ref(q, k, v,
+                                                         causal=causal)
+                qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+                mask = None
+            else:
+                def kern():
+                    return ops.flash_attention_kernel(q, k, v, **kw)
+
+                def plain():
+                    return ref.flash_attention_ref(q, k, v, **kw)
+                qs = q.reshape(B, H, Sq, D)
+                ks, vs = k[:, None], v[:, None]
+                kpos = torch.arange(Skv, device=dev)
+                mask = kpos[None, :] < kw.get("kv_len", Skv)
+                if causal:
+                    mask = mask & (kw.get("q_offset", 0)
+                                   + torch.arange(Sq, device=dev)[:, None]
+                                   >= kpos[None, :])
+
+            def library():
+                if mask is None:
+                    return F.scaled_dot_product_attention(
+                        qs, ks, vs, is_causal=causal, enable_gqa=True)
+                return F.scaled_dot_product_attention(
+                    qs, ks, vs, attn_mask=mask, enable_gqa=True)
+
+            got = kern()
+            want = plain()
+            torch.cuda.synchronize()
+            if not torch.isfinite(got.float()).all():
+                fail(f"flash {label} {dtype}: non-finite output")
+            diff = (got.float() - want.float()).abs()
+            err = float(diff.max())
+            tol = FLASH_TOL[dtype]
+            if bool((diff > tol + tol * want.float().abs()).any()):
+                fail(f"flash {label} {dtype}: kernel differs from plain "
+                     f"version (max abs err {err}, tolerance {tol})")
+            del got, want
+            big = Sq * Skv * B * H >= 2 ** 28
+            iters, warm = (5, 2) if big else (50, 5)
+            pairs = valid_pairs(Sq, Skv, causal, kw.get("kv_len"),
+                                kw.get("q_offset", 0))
+            flops = 4 * B * H * pairs * D
+            moved = nbytes(q, k, v) + q.numel() * q.element_size()
+            b, how = bound(moved, flops, BF16_FLOPS_PER_S
+                           if dtype == torch.bfloat16 else FP32_FLOPS_PER_S)
+            res = {"max_abs_err": err,
+                   "ms": time_ms(kern, iters, warm),
+                   "plain_ms": time_ms(plain, iters, warm),
+                   "library_ms": time_ms(library, iters, warm),
+                   "device_ms": device_ms(kern, "flash_attention_kernel",
+                                          calls=8 if big else 20),
+                   "bound_ms": b, "bound_by": how,
+                   "bound_bytes_ms": moved / HBM_BYTES_PER_S * 1e3,
+                   "flops": flops}
+            out[(label, dtype)] = res
+            dev_ms = "not measured" if res["device_ms"] is None \
+                else f"{res['device_ms']:.4f} ms"
+            log(f"[flash] {label} {str(dtype)[6:]} q{q_shape} kv{kv_shape} "
+                f"{kw or ''}: max abs err {err:.3g} (tol {tol}); kernel "
+                f"{res['ms']:.4f} ms (device {dev_ms}), plain "
+                f"{res['plain_ms']:.4f} ms, sdpa {res['library_ms']:.4f} "
+                f"ms; bound {b:.4f} ms by {how} ({flops / 1e9:.2f} GFLOP, "
+                f"bytes term {res['bound_bytes_ms']:.4f} ms); kernel at "
+                f"{flops / res['ms'] / 1e9:.2f} TFLOP/s")
+            torch.cuda.empty_cache()
+    return out
+
+
+# -- phases 7 and 8: the yi-9b model path --------------------------------
+
+def forward_phase(params, cfg, dev) -> dict:
+    """forward_loss at full width and depth through the kernel and its
+    plain version, in bf16 (B=2) and f32 (B=1)."""
+    from repro_torch.configs import REDUCED_SHAPE, RunConfig
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.steps import _resolve_flash
+    from repro_torch.models import forward_loss
+
+    kernel_fn = _resolve_flash(RunConfig(model=cfg, shape=REDUCED_SHAPE,
+                                         attention_impl="pallas"))
+    if kernel_fn is not ops.flash_attention:
+        fail("forward: attention_impl='pallas' does not resolve to the "
+             "CUDA flash kernel")
+    rng = np.random.default_rng(2021)
+    ln_v = math.log(cfg.vocab_size)
+    out = {}
+    for dtype, B, rel in ((torch.bfloat16, 2, 1e-2), (torch.float32, 1, 1e-4)):
+        S = 4096
+        tok = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+        batch = {"tokens": torch.from_numpy(tok[:, :-1]).to(dev),
+                 "targets": torch.from_numpy(tok[:, 1:]).to(dev)}
+        losses, secs = {}, {}
+        for label, fn in (("kernel", kernel_fn),
+                          ("plain", ref.flash_attention_model_ref)):
+            forward_loss(params, cfg, batch, compute_dtype=dtype,
+                         flash_fn=fn)                      # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            loss, _ = forward_loss(params, cfg, batch, compute_dtype=dtype,
+                                   flash_fn=fn)
+            torch.cuda.synchronize()
+            secs[label] = time.perf_counter() - t0
+            launches = dict(ops.LAUNCHES)
+            want = {name: 0 for name in launches}
+            want["flash_attention"] = cfg.num_layers if label == "kernel" \
+                else 0
+            if launches != want:
+                fail(f"forward {label} {dtype}: launches {launches}, "
+                     f"expected {want}")
+            losses[label] = float(loss)
+            if not math.isfinite(losses[label]) or \
+                    abs(losses[label] - ln_v) > 2.0:
+                fail(f"forward {label} {dtype}: loss {losses[label]} not "
+                     f"within 2.0 of ln {cfg.vocab_size} = {ln_v:.4f}")
+            log(f"[forward] {cfg.name} {cfg.num_layers}L {str(dtype)[6:]} B={B} "
+                f"S={S} via {label}: loss {losses[label]:.6f}, "
+                f"{secs[label]:.3f} s ({B * S / secs[label]:.1f} tokens/s), "
+                f"flash launches {launches['flash_attention']}, peak "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+            if label == "kernel" and dtype == torch.bfloat16:
+                # device time per launch inside the forward: the main
+                # path's own shape and dtype
+                out["launches"] = launches["flash_attention"]
+                out["flash_device_ms"] = profile_forward(
+                    lambda: forward_loss(params, cfg, batch,
+                                         compute_dtype=dtype, flash_fn=fn),
+                    secs[label])
+        d = abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"])
+        if d > rel:
+            fail(f"forward {dtype}: kernel loss {losses['kernel']} vs plain "
+                 f"{losses['plain']} ({d:.3g} relative > {rel})")
+        out[str(dtype)] = {"losses": losses, "secs": secs, "rel": d}
+        del batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def profile_forward(fn, wall: float):
+    """Device time by kernel over one profiled forward, against the wall
+    time of an unprofiled one; returns the flash kernel's mean device ms
+    per launch (None where the trace has none)."""
+    kern = profiled(fn)
+    if not kern:
+        log("[forward] device time not measured: the profiler trace holds "
+            "no CUDA kernels")
+        return None
+    busy = sum(e.self_device_time_total for e in kern) / 1e6
+    log(f"[forward] profile: device busy {busy:.3f} s of a {wall:.3f} s "
+        f"forward ({100 * busy / wall:.1f}%), "
+        f"{sum(e.count for e in kern)} kernel launches")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"[forward]   {e.self_device_time_total / 1e3:9.1f} ms "
+            f"{e.count:6d}x  {e.key[:90]}")
+    flash = [e for e in kern if "flash_attention_kernel" in e.key]
+    if not flash:
+        return None
+    return sum(e.self_device_time_total for e in flash) \
+        / sum(e.count for e in flash) / 1e3
+
+
+def serve_phase(params, cfg, dev) -> None:
+    """BatchServer on the card: 8 requests, then prefill vs decode."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import BatchServer, Request
+    from repro_torch.models import decode_step, init_cache, prefill
+
+    rng = np.random.default_rng(0)              # as launch/serve.py draws
+    server = BatchServer(cfg, slots=4, max_len=128, params=params,
+                         device=dev)
+    for i in range(8):
+        plen = int(rng.integers(4, 12))
+        server.submit(Request(i, rng.integers(
+            0, cfg.vocab_size, plen).astype(np.int32), 16))
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = server.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if sorted(r.id for r in done) != list(range(8)):
+        fail(f"serve: {len(done)} of 8 requests finished")
+    for r in done:
+        if len(r.out) != 16 or not all(0 <= t < cfg.vocab_size
+                                       for t in r.out):
+            fail(f"serve: request {r.id} gave {r.out}")
+    if any(ops.LAUNCHES.values()):
+        fail(f"serve: decode launched kernels {ops.LAUNCHES}; it runs the "
+             "chunked attention, as the JAX package's server does")
+    toks = sum(len(r.out) for r in done)
+    log(f"[serve] {cfg.name} f32 slots=4: 8 requests, {toks} tokens, "
+        f"{server.steps} decode steps in {wall:.3f} s ({toks / wall:.1f} "
+        f"tokens/s, {1e3 * wall / server.steps:.2f} ms per step)")
+
+    # where a decode step's time goes: 8 steps of all 4 slots, profiled
+    tokens = torch.zeros((4, 1), dtype=torch.int32, device=dev)
+
+    def steps8():
+        for t in range(8):
+            decode_step(params, cfg, server.caches, tokens, 100 + t,
+                        compute_dtype=torch.float32)
+        torch.cuda.synchronize()
+    steps8()
+    t0 = time.perf_counter()
+    steps8()
+    step_ms = (time.perf_counter() - t0) / 8 * 1e3
+    kern = profiled(steps8)
+    if kern:
+        busy = sum(e.self_device_time_total for e in kern) / 8 / 1e3
+        log(f"[serve] profile: a decode step takes {step_ms:.2f} ms wall, "
+            f"{busy:.2f} ms device busy ({100 * busy / step_ms:.1f}%), "
+            f"{sum(e.count for e in kern) // 8} kernel launches")
+        for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:6]:
+            log(f"[serve]   {e.self_device_time_total / 8e3:8.2f} ms/step "
+                f"{e.count // 8:5d}x  {e.key[:90]}")
+
+    prompt = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (1, 8)).astype(np.int32)).to(dev)
+    pre, _ = prefill(params, cfg, {"tokens": prompt},
+                     compute_dtype=torch.float32)
+    caches = init_cache(cfg, 1, 9, torch.float32, device=dev)
+    for t in range(8):
+        step, caches = decode_step(params, cfg, caches, prompt[:, t:t + 1], t,
+                                   compute_dtype=torch.float32)
+    vocab = cfg.vocab_size
+    err = float((pre[..., :vocab] - step[..., :vocab]).abs().max())
+    if not err <= 1e-3:
+        fail(f"serve: prefill vs decode logits differ by {err} (> 1e-3)")
+    log(f"[serve] prefill vs token-by-token decode, 8 tokens, f32: max abs "
+        f"err {err:.3g} (tol 1e-3)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to PyTorch",
@@ -350,6 +665,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi()
     t0 = time.perf_counter()
     build.library()
@@ -376,11 +692,33 @@ def main() -> int:
         (ROOT / "tests" / "data" / "dataplane.spec.json").read_text())
     drive("dataplane", [dp_spec], list(range(64)))
 
+    flash = check_flash(dev)
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, param_count
+    cfg = get_config("yi-9b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, 2021, device=dev)
+    torch.cuda.synchronize()
+    log(f"[model] yi-9b: {param_count(params) / 1e9:.3f} B f32 parameters "
+        f"({cfg.num_layers} layers, d_model {cfg.d_model}) initialised on "
+        f"the card in {time.perf_counter() - t0:.2f} s")
+    fwd = forward_phase(params, cfg, dev)
+    serve_phase(params, cfg, dev)
+
+    yi = flash[("yi-9b", torch.bfloat16)]
+    if yi["device_ms"] is None:          # the forward's own profile
+        yi["device_ms"] = fwd["flash_device_ms"]
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": CU_SOURCE,
          "replaces": REPLACES[name],
          "launches": main_run["launches"][name],
-         **kernels[name]} for name in REPLACES]}
+         **kernels[name]} for name in REPLACES] + [
+        {"name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
+         "replaces": FLASH_REPLACES, "launches": fwd["launches"],
+         **{key: yi[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                     "device_ms", "bound_ms", "bound_by",
+                                     "library_ms")}}]}
     print(json.dumps(report))
     print(smi)
     print(json.dumps({"ok": True, "device": {

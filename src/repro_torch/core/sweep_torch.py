@@ -46,6 +46,7 @@ import torch
 from repro_torch.core import timeline as timeline_registry
 from repro_torch.core.spec import LEDGER_THRESHOLDS, CampaignSpec
 from repro_torch.core.sweep_result import _Lane, _prepare
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops, ref
 
 __all__ = ["TorchLaneOps", "TorchSweepEngine", "philox_uniforms",
@@ -55,18 +56,6 @@ I32, F32 = torch.int32, torch.float32
 
 #: a per-tick draw source: tick index -> [B, G] float32 uniforms
 UniformHook = Callable[[int], object]
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device a sweep runs on: the card unless the caller names the
-    CPU.  Raises when the card is asked for (or defaulted to) and
-    PyTorch sees none."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the torch sweep runs on the card; pass "
-            "device='cpu' to run the plain versions on the CPU")
-    return dev
 
 
 class TorchLaneOps:

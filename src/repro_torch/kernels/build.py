@@ -1,10 +1,13 @@
 """Build the CUDA kernels with nvcc at first use and load them with ctypes.
 
-The sources in ``csrc/`` are compiled into a shared library with a
-plain C interface (no PyTorch headers, so the build takes seconds):
+The sources in ``csrc/`` are compiled into one shared library with a
+plain C interface (no PyTorch headers, so the build takes seconds).
+Each source compiles in its own nvcc process, all started together,
+and one more nvcc links the objects:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o <lib> csrc/campaign_sweep.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -c -o <obj> csrc/<source>.cu     (per source)
+    nvcc -shared -o <lib> <objs>
 
 The library lands in ``build/repro_torch_kernels/`` under the
 repository root, named by a hash of the sources and flags, so an edited
@@ -28,11 +31,11 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "build_dir", "library",
            "last_build_seconds"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (_CSRC / "campaign_sweep.cu",)
+SOURCES = (_CSRC / "campaign_sweep.cu", _CSRC / "flash_attention.cu")
 # IEEE division and square root, no fast math: the allocator's floors
 # depend on every f32 operation rounding on its own
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -66,16 +69,35 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds) -> None:
+    """Run the commands side by side; raise with the first failure's
+    output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def _compile(out: Path) -> None:
     global last_build_seconds
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [out.parent / f"{tag}.{src.stem}.o" for src in SOURCES]
+    tmp = out.parent / f"{tag}.tmp.so"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stderr}")
+    _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+              for src, obj in zip(SOURCES, objs)])
+    _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, out)                 # atomic: readers never see half
     last_build_seconds = time.perf_counter() - t0
 
@@ -85,7 +107,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.campaign_alloc.argtypes = [p, p, p, i, i, p]
     lib.campaign_advance.argtypes = [p, p, p, p, i, i, p]
     lib.campaign_bill.argtypes = [p, p, p, p, p, i, i, i, p]
-    for fn in (lib.campaign_alloc, lib.campaign_advance, lib.campaign_bill):
+    # q, k, v, o, strides, bf16, B, H, Hkv, Sq, Skv, D, causal, kv_len,
+    # q_offset, scale, stream
+    lib.flash_attention.argtypes = [p, p, p, p, p, *[i] * 10,
+                                    ctypes.c_float, p]
+    for fn in (lib.campaign_alloc, lib.campaign_advance, lib.campaign_bill,
+               lib.flash_attention):
         fn.restype = ctypes.c_int
     return lib
 
@@ -95,7 +122,7 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            out = build_dir() / f"campaign_sweep-{_digest()}.so"
+            out = build_dir() / f"repro_torch_kernels-{_digest()}.so"
             if not out.exists():
                 _compile(out)
             _lib = _bind(ctypes.CDLL(str(out)))

@@ -1,11 +1,11 @@
-"""Wrappers for the campaign sweep's per-tick kernels.
+"""Wrappers for the port's CUDA kernels.
 
 Each wrapper checks dtype, shape, device and contiguity, then routes by
 where its tensors lie: CPU tensors go to the plain version in ref.py,
-CUDA tensors to the hand-written kernel in csrc/campaign_sweep.cu
-(built at first use by build.py).  There is no fallback: a kernel that
-fails to build or launch raises.  The kernel launches on PyTorch's
-current stream; the wrapper allocates its outputs.
+CUDA tensors to the hand-written kernel in csrc/ (built at first use by
+build.py).  There is no fallback: a kernel that fails to build or launch
+raises.  The kernel launches on PyTorch's current stream; the wrapper
+allocates its outputs.
 
 ``LAUNCHES`` counts kernel launches per wrapper, and only those, so a
 run can show that its main path went through the kernels.
@@ -15,9 +15,12 @@ run can show that its main path went through the kernels.
   campaign_match      campaign_alloc    kernels/campaign_sweep.py:76
   campaign_advance    campaign_advance  kernels/campaign_sweep.py:93
   campaign_bill       campaign_bill     kernels/campaign_sweep.py:117
+  flash_attention     flash_attention   kernels/flash_attention.py:79
+  (and flash_attention_kernel, its kernel-level entry point)
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, Tuple
 
 import torch
@@ -25,10 +28,12 @@ import torch
 from repro_torch.kernels import ref
 
 __all__ = ["LAUNCHES", "reset_launches", "campaign_preempt",
-           "campaign_match", "campaign_advance", "campaign_bill"]
+           "campaign_match", "campaign_advance", "campaign_bill",
+           "flash_attention", "flash_attention_kernel"]
 
 LAUNCHES: Dict[str, int] = {"campaign_preempt": 0, "campaign_match": 0,
-                            "campaign_advance": 0, "campaign_bill": 0}
+                            "campaign_advance": 0, "campaign_bill": 0,
+                            "flash_attention": 0}
 
 
 def reset_launches() -> None:
@@ -137,3 +142,104 @@ def campaign_bill(live: torch.Tensor, rate: torch.Tensor,
         spent.data_ptr(), by_prov.data_ptr(), B, G, P, _stream(live)), op)
     LAUNCHES[op] += 1
     return spent, by_prov
+
+
+# -- flash attention ---------------------------------------------------------
+
+_ATTN_DTYPES = (torch.float32, torch.bfloat16)
+_MAX_HEAD_DIM = 256          # the kernel's largest shared-memory tile
+
+
+def _check_attention(op: str, q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor, rank: int, kv_len, q_offset) -> None:
+    if q.dtype not in _ATTN_DTYPES:
+        raise TypeError(f"{op}: q must be float32 or bfloat16, got {q.dtype}")
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{op}: {name} is {t.dtype}, q is {q.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{op}: {name} on {t.device}, q on {q.device}")
+    if q.dim() != rank or k.dim() != rank or k.shape != v.shape:
+        raise ValueError(f"{op}: expected rank-{rank} q and equal k/v "
+                         f"shapes, got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    D = q.shape[-1]
+    if k.shape[-1] != D or not 1 <= D <= _MAX_HEAD_DIM:
+        raise ValueError(f"{op}: head dims {D} / {k.shape[-1]}; the kernel "
+                         f"takes equal dims up to {_MAX_HEAD_DIM}")
+    if k.shape[-2 if rank == 3 else 1] < 1:
+        raise ValueError(f"{op}: no keys")
+    if kv_len is not None and kv_len < 1:
+        raise ValueError(f"{op}: kv_len {kv_len} masks every key")
+    if q_offset < 0:
+        raise ValueError(f"{op}: negative q_offset {q_offset}")
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """The kernel reads any (batch, seq, head) strides but a contiguous
+    last dim: copy only a tensor whose last dim is strided."""
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def _launch_flash(q, k, v, o, strides, B, H, Hkv, Sq, Skv, D, causal,
+                  kv_len, q_offset, scale) -> None:
+    from repro_torch.kernels.build import library
+    st = (ctypes.c_longlong * 12)(*strides)
+    _raise_on(library().flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), st,
+        int(q.dtype == torch.bfloat16), B, H, Hkv, Sq, Skv, D, int(causal),
+        kv_len, q_offset, scale, _stream(q)), "flash_attention")
+    LAUNCHES["flash_attention"] += 1
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """Model layout: q (B,Sq,H,D), k/v (B,Skv,Hkv,D) -> (B,Sq,H,D), with
+    scale D**-0.5 and every key valid (the model's ``flash_fn``).  The
+    kernel reads the model layout through strides: no transpose, no
+    padding."""
+    op = "flash_attention"
+    _check_attention(op, q, k, v, 4, None, 0)
+    B, Sq, H, D = q.shape
+    Bk, Skv, Hkv, _ = k.shape
+    if Bk != B or H % Hkv:
+        raise ValueError(f"{op}: q {tuple(q.shape)} vs k {tuple(k.shape)}: "
+                         "batch must match and H be a multiple of Hkv")
+    if not _on_card(q, op):
+        return ref.flash_attention_model_ref(q, k, v, causal=causal)
+    q, k, v = _rows(q), _rows(k), _rows(v)
+    o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    strides = [t.stride(a) for t in (q, k, v, o) for a in (0, 1, 2)]
+    _launch_flash(q, k, v, o, strides, B, H, Hkv, Sq, Skv, D, causal,
+                  Skv, 0, D ** -0.5)
+    return o
+
+
+def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, *, causal: bool, kv_len=None,
+                           scale=None, q_offset: int = 0) -> torch.Tensor:
+    """Kernel layout, the signature of the JAX package's
+    ``flash_attention_kernel``: q (BHG,Sq,D), k/v (BKV,Skv,D) with
+    BHG = BKV * G -> (BHG,Sq,D).  ``kv_len`` masks keys at or past it,
+    ``scale`` defaults to D**-0.5, causal masking is q_offset + i >= j."""
+    op = "flash_attention"
+    _check_attention(op, q, k, v, 3, kv_len, q_offset)
+    BHG, Sq, D = q.shape
+    BKV, Skv, _ = k.shape
+    if BHG % BKV:
+        raise ValueError(f"{op}: {BHG} query rows for {BKV} kv rows")
+    if not _on_card(q, op):
+        return ref.flash_attention_ref(q, k, v, causal=causal, kv_len=kv_len,
+                                       scale=scale, q_offset=q_offset)
+    G = BHG // BKV
+    q, k, v = _rows(q), _rows(k), _rows(v)
+    o = torch.empty((BHG, Sq, D), dtype=q.dtype, device=q.device)
+    # viewed as (B = BKV, S, H = G, D) with one kv head
+    strides = [G * q.stride(0), q.stride(1), q.stride(0),
+               k.stride(0), k.stride(1), 0,
+               v.stride(0), v.stride(1), 0,
+               G * o.stride(0), o.stride(1), o.stride(0)]
+    _launch_flash(q, k, v, o, strides, BKV, G, 1, Sq, Skv, D, causal,
+                  Skv if kv_len is None else int(kv_len), int(q_offset),
+                  D ** -0.5 if scale is None else float(scale))
+    return o

@@ -1,4 +1,10 @@
-"""Plain PyTorch versions of the campaign sweep's per-tick ops.
+"""Plain PyTorch versions of the port's CUDA kernels.
+
+``flash_attention_ref`` is the plain version of csrc/flash_attention.cu
+and the port of the JAX package's ``kernels/ref.py`` oracle of the same
+name: f32 throughout, masked scores -1e30, output in q's dtype.
+
+The campaign sweep's per-tick ops follow.
 
 The sweep engine (core/sweep_torch.py) tracks exchangeable instances
 as count planes (lane x group x progress step), so its tick ops are
@@ -22,9 +28,51 @@ from typing import Tuple
 import numpy as np
 import torch
 
-__all__ = ["campaign_alloc_ref", "campaign_preempt_ref",
+__all__ = ["flash_attention_ref", "flash_attention_model_ref",
+           "campaign_alloc_ref", "campaign_preempt_ref",
            "campaign_match_ref", "campaign_advance_ref",
            "campaign_bill_ref"]
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool, kv_len=None, scale=None,
+                        q_offset: int = 0) -> torch.Tensor:
+    """q: (BHG, Sq, D); k/v: (BKV, Skv, D), BHG = BKV * G (query head
+    bhg reads kv row bhg // G).  Plain softmax attention in f32; the
+    score tensor is masked in place."""
+    BHG, Sq, D = q.shape
+    BKV, Skv, _ = k.shape
+    G = BHG // BKV
+    scale = scale if scale is not None else D ** -0.5
+    qg = q.reshape(BKV, G, Sq, D).to(torch.float32) * scale
+    s = torch.einsum("bgqd,bkd->bgqk", qg, k.to(torch.float32))
+    kpos = torch.arange(Skv, device=q.device)
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if kv_len is not None:
+        mask &= (kpos < kv_len)[None, :]
+    if causal:
+        qpos = q_offset + torch.arange(Sq, device=q.device)
+        mask &= qpos[:, None] >= kpos[None, :]
+    s.masked_fill_(~mask, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bgqk,bkd->bgqd", p, v.to(torch.float32))
+    return o.reshape(BHG, Sq, D).to(q.dtype)
+
+
+def flash_attention_model_ref(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, causal: bool = True
+                              ) -> torch.Tensor:
+    """The plain version in the model layout: q (B,Sq,H,D), k/v
+    (B,Skv,Hkv,D) -> (B,Sq,H,D), scale D**-0.5, every key valid."""
+    B, Sq, H, D = q.shape
+    Hkv = k.shape[2]
+    qk = q.transpose(1, 2).reshape(B * H, Sq, D)
+    kk = k.transpose(1, 2).reshape(B * Hkv, -1, D)
+    vv = v.transpose(1, 2).reshape(B * Hkv, -1, D)
+    o = flash_attention_ref(qk, kk, vv, causal=causal, scale=D ** -0.5)
+    return o.reshape(B, H, Sq, D).transpose(1, 2)
+
+
+# -- campaign-sweep tick ops -----------------------------------------------
 
 # f32-representable, so the value is the same whether an op computes
 # with it in f32 or f64

@@ -1,0 +1,4 @@
+"""The port's model stack (dense language models so far)."""
+from repro_torch.models.model import (decode_step, forward_loss,  # noqa: F401
+                                      init_cache, init_params, param_count,
+                                      prefill)

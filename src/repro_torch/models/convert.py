@@ -1,0 +1,66 @@
+"""Weights across: the JAX package's ``init_params`` tree -> the port's.
+
+``params_from_jax`` takes the JAX tree as nested dicts of numpy arrays
+(``jax.tree.map(np.asarray, params)``), unstacks the leading ``n_super``
+axis of ``stack`` into the port's list of per-super-block dicts, and
+keeps every leaf's layout (``wq`` (d, H, hd), ``wo`` (H, hd, d), ...).
+Every leaf must map onto a leaf of the port's tree for the config, with
+its shape; an unknown or missing leaf raises.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.model import init_params
+
+
+def _flatten(node, prefix=()):
+    if isinstance(node, dict):
+        for key in sorted(node):
+            yield from _flatten(node[key], prefix + (key,))
+    elif isinstance(node, (list, tuple)):
+        for i, child in enumerate(node):
+            yield from _flatten(child, prefix + (i,))
+    else:
+        yield prefix, node
+
+
+def _put(tree, path, value):
+    for key in path[:-1]:
+        tree = tree[key]
+    tree[path[-1]] = value
+
+
+def params_from_jax(tree, cfg, device=None):
+    """The port's parameter tree for ``cfg`` holding the JAX weights, as
+    f32 tensors on ``device`` (the card unless told otherwise)."""
+    dev = resolve_device(device)
+    out = init_params(cfg, torch.Generator(), device="meta")
+    want = dict(_flatten(out))
+    n = cfg.n_super
+    seen = set()
+    for path, arr in _flatten(tree):
+        arr = np.asarray(arr, dtype=np.float32)
+        if path[:1] == ("stack",):
+            if arr.shape[:1] != (n,):
+                raise ValueError(f"{'/'.join(map(str, path))}: shape "
+                                 f"{arr.shape} has no leading n_super={n}")
+            targets = [(("stack", i) + path[1:], arr[i]) for i in range(n)]
+        else:
+            targets = [(path, arr)]
+        for dest, a in targets:
+            if dest not in want:
+                raise KeyError(f"JAX leaf {'/'.join(map(str, path))} has no "
+                               f"place in the port's {cfg.name} tree")
+            if tuple(want[dest].shape) != a.shape:
+                raise ValueError(f"{'/'.join(map(str, path))}: shape "
+                                 f"{a.shape}, the port expects "
+                                 f"{tuple(want[dest].shape)}")
+            _put(out, dest, torch.from_numpy(np.array(a)).to(dev))
+            seen.add(dest)
+    missing = sorted("/".join(map(str, p)) for p in set(want) - seen)
+    if missing:
+        raise KeyError(f"the JAX tree lacks {missing}")
+    return out

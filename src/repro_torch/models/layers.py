@@ -1,0 +1,156 @@
+"""Core functional layers: inits, norms, FFN variants, position encodings.
+
+The port of the JAX package's ``models/layers.py``.  Modules are (init,
+apply) pairs over plain dicts of tensors, with the same keys and layouts
+as the JAX trees, so ``models/convert.py`` carries JAX weights across
+leaf for leaf.  Inits draw from an explicit ``torch.Generator`` (its
+numbers differ from JAX's threefry; the parity tests load the JAX
+weights instead).  Arithmetic follows the JAX order: norms and the loss
+in f32, matmuls in the compute dtype with the weights cast per use.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+# --------------------------------------------------------------------------
+# init helpers
+# --------------------------------------------------------------------------
+
+
+def dense_init(gen, shape, device, in_axis_size=None, dtype=torch.float32):
+    """Truncated-normal fan-in init (maxtext-style): std * N(0,1) cut at
+    +-2."""
+    fan_in = in_axis_size if in_axis_size is not None else shape[0]
+    std = 1.0 / np.sqrt(max(fan_in, 1))
+    t = torch.empty(shape, dtype=dtype, device=device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return t.mul_(std)
+
+
+def embed_init(gen, shape, device, dtype=torch.float32):
+    t = torch.empty(shape, dtype=dtype, device=device)
+    return t.normal_(generator=gen).mul_(0.02)
+
+
+# --------------------------------------------------------------------------
+# norms
+# --------------------------------------------------------------------------
+
+def init_norm(d, device, norm_type="rmsnorm"):
+    if norm_type == "rmsnorm":
+        return {"scale": torch.ones(d, dtype=torch.float32, device=device)}
+    return {"scale": torch.ones(d, dtype=torch.float32, device=device),
+            "bias": torch.zeros(d, dtype=torch.float32, device=device)}
+
+
+def apply_norm(p, x, norm_type="rmsnorm", eps=1e-6):
+    """RMSNorm / LayerNorm with f32 statistics, cast back to x's dtype."""
+    xf = x.to(torch.float32)
+    if norm_type == "rmsnorm":
+        var = (xf * xf).mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(var + eps) * p["scale"]
+    else:
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, keepdim=True, unbiased=False)
+        y = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    return y.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# FFN variants
+# --------------------------------------------------------------------------
+
+def init_ffn(gen, d_model, d_ff, device, ffn_type="swiglu"):
+    if ffn_type == "swiglu":
+        return {"wi": dense_init(gen, (d_model, d_ff), device),
+                "wg": dense_init(gen, (d_model, d_ff), device),
+                "wo": dense_init(gen, (d_ff, d_model), device,
+                                 in_axis_size=d_ff)}
+    return {"wi": dense_init(gen, (d_model, d_ff), device),
+            "wo": dense_init(gen, (d_ff, d_model), device, in_axis_size=d_ff)}
+
+
+def apply_ffn(p, x, ffn_type="swiglu"):
+    dt = x.dtype
+    if ffn_type == "swiglu":
+        h = F.silu(x @ p["wg"].to(dt)) * (x @ p["wi"].to(dt))
+    elif ffn_type == "squared_relu":
+        h = torch.square(F.relu(x @ p["wi"].to(dt)))
+    elif ffn_type == "gelu":
+        # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(x @ p["wi"].to(dt), approximate="tanh")
+    else:
+        raise ValueError(ffn_type)
+    return h @ p["wo"].to(dt)
+
+
+# --------------------------------------------------------------------------
+# position encodings
+# --------------------------------------------------------------------------
+
+def rope_freqs(head_dim, theta):
+    """numpy float32, the JAX package's expression exactly."""
+    exponent = np.arange(0, head_dim, 2, dtype=np.float32) / head_dim
+    return 1.0 / (theta ** exponent)          # (head_dim/2,)
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_freqs_on(head_dim, theta, device):
+    # one host-to-device copy per (dim, theta, device): a copy per call
+    # would stall the host on the card's queue at every layer
+    return torch.from_numpy(rope_freqs(head_dim, theta)).to(device)
+
+
+def apply_rope(x, positions, theta):
+    """x: (..., S, H, D) rotated by split halves (not interleaved);
+    positions: (..., S) integer tensor."""
+    d = x.shape[-1]
+    freqs = _rope_freqs_on(d, theta, x.device)                    # (d/2,)
+    angles = positions[..., :, None].to(torch.float32) * freqs    # (...,S,d/2)
+    cos = torch.cos(angles)[..., :, None, :]                      # (...,S,1,d/2)
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# embedding / lm head
+# --------------------------------------------------------------------------
+
+def init_embed(gen, vocab_padded, d_model, device):
+    return {"table": embed_init(gen, (vocab_padded, d_model), device)}
+
+
+def apply_embed(p, tokens, dtype):
+    # gather, then cast: the same values as casting the whole table first
+    # (the JAX order) without a vocab x d_model copy per call
+    return F.embedding(tokens, p["table"]).to(dtype)
+
+
+def init_lm_head(gen, d_model, vocab_padded, device):
+    return {"w": dense_init(gen, (d_model, vocab_padded), device)}
+
+
+def apply_lm_head(p, x, vocab_size):
+    logits = x @ p["w"].to(x.dtype)
+    if p["w"].shape[1] != vocab_size:  # mask padded vocab entries
+        logits[..., vocab_size:] = torch.finfo(logits.dtype).min
+    return logits
+
+
+def cross_entropy_loss(logits, targets, vocab_size):
+    """Mean token NLL with an f32 logsumexp; targets == -1 are masked
+    (e.g. image-patch positions)."""
+    del vocab_size                     # padded logits are already masked
+    valid = targets >= 0
+    tgt = torch.where(valid, targets, torch.zeros_like(targets))
+    lf = logits.to(torch.float32)
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, tgt[..., None].to(torch.int64))[..., 0]
+    nll = (logz - gold) * valid
+    return nll.sum() / torch.clamp(valid.sum(), min=1)

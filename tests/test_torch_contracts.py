@@ -5,7 +5,8 @@ see (it scans only ``src/repro/``):
     test file imports JAX or the JAX package;
   * every op in the port's timeline registry has concrete
     ``TorchLaneOps`` members (the port's twin of rule REG001/REG002);
-  * the entry points run on the card unless told otherwise;
+  * the entry points (the sweep, the model, the server) run on the card
+    unless told otherwise;
   * spec JSON crosses between the packages byte for byte, and both
     packages batch every spec by the same key.
 """
@@ -69,6 +70,20 @@ def test_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         api.run(spec, seeds=0)
     assert api.run(spec, seeds=0, device="cpu").engine == "torch"
+    # the model path: weights, caches, the server and its CLI
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import serve
+    from repro_torch.models import init_cache, init_params
+    cfg = get_reduced("yi-9b")
+    for call in (lambda: init_params(cfg, 0),
+                 lambda: init_cache(cfg, 2, 8),
+                 lambda: serve.BatchServer(cfg),
+                 lambda: serve.main(["--arch", "yi-9b", "--reduced"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert init_params(cfg, 0, device="cpu")["embed"]["table"].device.type \
+        == "cpu"
+    assert serve.BatchServer(cfg, device="cpu").device.type == "cpu"
 
 
 def _all_specs():

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card:
+the campaign tick kernels and the flash attention kernel.
 
 Every test here carries the ``cuda`` marker and skips without an NVIDIA
 GPU (a CUDA kernel has no CPU mode).  The file imports neither JAX nor
@@ -108,10 +109,92 @@ def test_sweep_through_kernels_equals_plain_path(cuda):
     ops.reset_launches()
     got = sweep(specs, [0, 1])
     assert ops.LAUNCHES == {"campaign_preempt": 384, "campaign_match": 192,
-                            "campaign_advance": 192, "campaign_bill": 192}
+                            "campaign_advance": 192, "campaign_bill": 192,
+                            "flash_attention": 0}
     want = sweep(specs, [0, 1], use_kernels=False)
     for a, b in zip(got.rows, want.rows):
         assert a["cost"] == pytest.approx(b["cost"], rel=1e-5)
         for k in ("preemptions", "jobs_finished", "nat_drops",
                   "by_provider", "events_fired"):
             assert a[k] == b[k], k
+
+
+# -- flash attention -----------------------------------------------------------
+
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _randn(gen, shape, dtype):
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,D,causal", [
+    (1, 128, 128, 2, 2, 64, True),
+    (2, 256, 256, 4, 2, 64, True),       # GQA
+    (1, 128, 384, 2, 1, 128, False),     # MQA, not causal
+    (2, 96, 160, 2, 2, 80, True),        # ragged tiles, D = 80
+    (1, 1, 37, 4, 2, 16, False),         # one query, the reduced head dim
+    (1, 200, 200, 2, 1, 256, True),      # the largest head dim
+])
+def test_flash_kernel_equals_plain_version(cuda, B, Sq, Skv, H, Hkv, D,
+                                           causal, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda).manual_seed(B * Sq + D)
+    q = _randn(gen, (B, Sq, H, D), dtype)
+    k = _randn(gen, (B, Skv, Hkv, D), dtype)
+    v = _randn(gen, (B, Skv, Hkv, D), dtype)
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(
+        got.float(), ref.flash_attention_model_ref(q, k, v, causal=causal)
+        .float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kw", [
+    dict(causal=True, q_offset=1000),
+    dict(causal=False, kv_len=300),
+    dict(causal=True, kv_len=500, q_offset=400, scale=0.07),
+], ids=["q_offset", "kv_len", "both_and_scale"])
+def test_flash_kernel_layout_masks(cuda, kw, dtype):
+    """(BHG, S, D) entry point, G = 4, with q_offset / kv_len masks, and
+    a strided (non-contiguous) q."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = _randn(gen, (150, 16, 128), dtype).transpose(0, 1)  # (16,150,128)
+    k = _randn(gen, (4, 1100, 128), dtype)
+    v = _randn(gen, (4, 1100, 128), dtype)
+    got = ops.flash_attention_kernel(q, k, v, **kw)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(
+        got.float(), ref.flash_attention_ref(q, k, v, **kw).float(),
+        rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_model_forward_through_the_kernel(cuda):
+    """Reduced yi-9b on the card: the kernel path's loss equals the plain
+    version's, one launch per layer."""
+    import dataclasses
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import forward_loss, init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_reduced("yi-9b"), num_layers=3)
+    params = init_params(cfg, 0, device=cuda)
+    tok = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 200)).astype(np.int32)).to(cuda)
+    batch = {"tokens": tok, "targets": tok}
+    ops.reset_launches()
+    got, _ = forward_loss(params, cfg, batch, compute_dtype=torch.float32,
+                          flash_fn=ops.flash_attention)
+    assert ops.LAUNCHES["flash_attention"] == 3
+    want, _ = forward_loss(params, cfg, batch, compute_dtype=torch.float32,
+                           flash_fn=ref.flash_attention_model_ref)
+    assert float(got) == pytest.approx(float(want), rel=1e-5)
