@@ -39,7 +39,30 @@ Phases (any failure raises and exits non-zero with no result line):
              8 requests (prompts of 4-12 tokens, 16 new tokens each); every
              token below 64000; prefill logits == token-by-token decode
              logits within 1e-3 (f32); decode tokens/s;
-  9. report  a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+  9. gmm     the moe_gmm kernel against its plain version at the
+             jamba-v0.1-52b shapes (E=16, C=1280 and 640, D=4096 -> F=14336
+             and back), the decode C=8 and an unaligned shape, f32 and
+             bf16: max |err| / max |plain| within 1e-5 (f32) / 1e-2
+             (bf16); per case the per-call, device, plain version's and
+             torch.bmm's times (the library yardstick, never called by the
+             port) and the bound;
+ 10. scan    the mamba_scan kernel against its plain version at jamba's
+             shapes (B=2 with the model's bf16/f32 stream mix, B=1 in
+             f32; S=4096, di=8192, N=16) and the edge shapes of
+             tests/test_kernels.py, the same criterion and timings (no
+             library call computes it);
+ 11. hybrid the yi-9b weights freed, jamba-v0.1-52b at full width, one
+             super-block deep (8 of 32 layers, random weights from the
+             port's init_params): forward_loss at B=2, S=4096 in bf16 and
+             B=1, S=4096 in f32, through the kernels (attention_impl=
+             "pallas": flash 1, moe_gmm 12 and mamba_scan 7 launches) and
+             through the reference path: finite loss, kernels vs reference
+             within 1e-2 (bf16) / 1e-4 (f32) relative; tokens/s, peak
+             memory, a profiled bf16 forward on each path;
+ 12. served  BatchServer(slots=4, max_len=128) on the jamba weights, f32,
+             8 requests as in 8; the prefill-vs-decode check on a prompt
+             whose MoE layers drop no token (drops counted, asserted 0);
+ 13. report  a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
              ``{"ok": true, "device": {...}}``.
 
 Exits 2 without a card or without the repository's ``src/`` beside it.
@@ -70,6 +93,10 @@ REPLACES = {
     "campaign_bill": "src/repro/kernels/campaign_sweep.py:117",
 }
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:79"
+GMM_SOURCE = "src/repro_torch/kernels/csrc/moe_gmm.cu"
+GMM_REPLACES = "src/repro/kernels/moe_gmm.py:39"
+SCAN_SOURCE = "src/repro_torch/kernels/csrc/mamba_scan.cu"
+SCAN_REPLACES = "src/repro/kernels/mamba_scan.py:51"
 INT_COUNTERS = ("preemptions", "jobs_finished", "nat_drops")
 REL = 1e-5
 
@@ -303,7 +330,7 @@ def drive(label, specs, seeds):
 
     expect = {"campaign_preempt": 2 * n_ticks, "campaign_match": n_ticks,
               "campaign_advance": n_ticks, "campaign_bill": n_ticks,
-              "flash_attention": 0}
+              "flash_attention": 0, "moe_gmm": 0, "mamba_scan": 0}
     if launches != expect:
         fail(f"{label}: launches {launches}, expected {expect}")
     if len(got.rows) != lanes:
@@ -491,11 +518,11 @@ def forward_phase(params, cfg, dev) -> dict:
     plain version, in bf16 (B=2) and f32 (B=1)."""
     from repro_torch.configs import REDUCED_SHAPE, RunConfig
     from repro_torch.kernels import ops, ref
-    from repro_torch.launch.steps import _resolve_flash
+    from repro_torch.launch.steps import _resolve_kernels
     from repro_torch.models import forward_loss
 
-    kernel_fn = _resolve_flash(RunConfig(model=cfg, shape=REDUCED_SHAPE,
-                                         attention_impl="pallas"))
+    kernel_fn = _resolve_kernels(RunConfig(
+        model=cfg, shape=REDUCED_SHAPE, attention_impl="pallas"))["flash_fn"]
     if kernel_fn is not ops.flash_attention:
         fail("forward: attention_impl='pallas' does not resolve to the "
              "CUDA flash kernel")
@@ -544,7 +571,7 @@ def forward_phase(params, cfg, dev) -> dict:
                 out["flash_device_ms"] = profile_forward(
                     lambda: forward_loss(params, cfg, batch,
                                          compute_dtype=dtype, flash_fn=fn),
-                    secs[label])
+                    secs[label])["flash_attention_kernel"]
         d = abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"])
         if d > rel:
             fail(f"forward {dtype}: kernel loss {losses['kernel']} vs plain "
@@ -555,34 +582,39 @@ def forward_phase(params, cfg, dev) -> dict:
     return out
 
 
-def profile_forward(fn, wall: float):
+def profile_forward(fn, wall: float, tag: str = "forward",
+                    kernels=("flash_attention_kernel",)) -> dict:
     """Device time by kernel over one profiled forward, against the wall
-    time of an unprofiled one; returns the flash kernel's mean device ms
-    per launch (None where the trace has none)."""
+    time of an unprofiled one; returns each named kernel's mean device
+    ms per launch (None where the trace has none)."""
     kern = profiled(fn)
     if not kern:
-        log("[forward] device time not measured: the profiler trace holds "
+        log(f"[{tag}] device time not measured: the profiler trace holds "
             "no CUDA kernels")
-        return None
+        return {name: None for name in kernels}
     busy = sum(e.self_device_time_total for e in kern) / 1e6
-    log(f"[forward] profile: device busy {busy:.3f} s of a {wall:.3f} s "
+    log(f"[{tag}] profile: device busy {busy:.3f} s of a {wall:.3f} s "
         f"forward ({100 * busy / wall:.1f}%), "
         f"{sum(e.count for e in kern)} kernel launches")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"[forward]   {e.self_device_time_total / 1e3:9.1f} ms "
+        log(f"[{tag}]   {e.self_device_time_total / 1e3:9.1f} ms "
             f"{e.count:6d}x  {e.key[:90]}")
-    flash = [e for e in kern if "flash_attention_kernel" in e.key]
-    if not flash:
-        return None
-    return sum(e.self_device_time_total for e in flash) \
-        / sum(e.count for e in flash) / 1e3
+    out = {}
+    for name in kernels:
+        hits = [e for e in kern if name in e.key]
+        out[name] = sum(e.self_device_time_total for e in hits) \
+            / sum(e.count for e in hits) / 1e3 if hits else None
+    return out
 
 
-def serve_phase(params, cfg, dev) -> None:
-    """BatchServer on the card: 8 requests, then prefill vs decode."""
+def serve_phase(params, cfg, dev, tag: str = "serve") -> None:
+    """BatchServer on the card: 8 requests, then prefill vs decode (with
+    the MoE layers' capacity drops in the prefill counted: decode never
+    drops, so a prefill that drops would differ by design)."""
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import BatchServer, Request
     from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.models import moe as moe_mod
 
     rng = np.random.default_rng(0)              # as launch/serve.py draws
     server = BatchServer(cfg, slots=4, max_len=128, params=params,
@@ -598,16 +630,16 @@ def serve_phase(params, cfg, dev) -> None:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if sorted(r.id for r in done) != list(range(8)):
-        fail(f"serve: {len(done)} of 8 requests finished")
+        fail(f"{tag}: {len(done)} of 8 requests finished")
     for r in done:
         if len(r.out) != 16 or not all(0 <= t < cfg.vocab_size
                                        for t in r.out):
-            fail(f"serve: request {r.id} gave {r.out}")
+            fail(f"{tag}: request {r.id} gave {r.out}")
     if any(ops.LAUNCHES.values()):
-        fail(f"serve: decode launched kernels {ops.LAUNCHES}; it runs the "
-             "chunked attention, as the JAX package's server does")
+        fail(f"{tag}: decode launched kernels {ops.LAUNCHES}; it runs the "
+             "reference path, as the JAX package's server does")
     toks = sum(len(r.out) for r in done)
-    log(f"[serve] {cfg.name} f32 slots=4: 8 requests, {toks} tokens, "
+    log(f"[{tag}] {cfg.name} f32 slots=4: 8 requests, {toks} tokens, "
         f"{server.steps} decode steps in {wall:.3f} s ({toks / wall:.1f} "
         f"tokens/s, {1e3 * wall / server.steps:.2f} ms per step)")
 
@@ -626,17 +658,31 @@ def serve_phase(params, cfg, dev) -> None:
     kern = profiled(steps8)
     if kern:
         busy = sum(e.self_device_time_total for e in kern) / 8 / 1e3
-        log(f"[serve] profile: a decode step takes {step_ms:.2f} ms wall, "
+        log(f"[{tag}] profile: a decode step takes {step_ms:.2f} ms wall, "
             f"{busy:.2f} ms device busy ({100 * busy / step_ms:.1f}%), "
             f"{sum(e.count for e in kern) // 8} kernel launches")
         for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:6]:
-            log(f"[serve]   {e.self_device_time_total / 8e3:8.2f} ms/step "
+            log(f"[{tag}]   {e.self_device_time_total / 8e3:8.2f} ms/step "
                 f"{e.count // 8:5d}x  {e.key[:90]}")
 
     prompt = torch.from_numpy(
         rng.integers(0, cfg.vocab_size, (1, 8)).astype(np.int32)).to(dev)
-    pre, _ = prefill(params, cfg, {"tokens": prompt},
-                     compute_dtype=torch.float32)
+    route, dropped = moe_mod._route, []
+
+    def counting_route(*args, **kw):
+        out = route(*args, **kw)
+        dropped.append(int((~out[-1]).sum()))        # keep = pos < C
+        return out
+    moe_mod._route = counting_route
+    try:
+        pre, _ = prefill(params, cfg, {"tokens": prompt},
+                         compute_dtype=torch.float32)
+    finally:
+        moe_mod._route = route
+    n_moe = cfg.n_super * sum(f == "moe" for _, f in cfg.block_defs)
+    if len(dropped) != n_moe or any(dropped):
+        fail(f"{tag}: the prefill's MoE layers dropped {dropped} tokens "
+             f"({n_moe} layers); the check needs a drop-free prompt")
     caches = init_cache(cfg, 1, 9, torch.float32, device=dev)
     for t in range(8):
         step, caches = decode_step(params, cfg, caches, prompt[:, t:t + 1], t,
@@ -644,9 +690,234 @@ def serve_phase(params, cfg, dev) -> None:
     vocab = cfg.vocab_size
     err = float((pre[..., :vocab] - step[..., :vocab]).abs().max())
     if not err <= 1e-3:
-        fail(f"serve: prefill vs decode logits differ by {err} (> 1e-3)")
-    log(f"[serve] prefill vs token-by-token decode, 8 tokens, f32: max abs "
-        f"err {err:.3g} (tol 1e-3)")
+        fail(f"{tag}: prefill vs decode logits differ by {err} (> 1e-3)")
+    log(f"[{tag}] prefill vs token-by-token decode, 8 tokens, f32: max abs "
+        f"err {err:.3g} (tol 1e-3); MoE drops in the prefill "
+        f"{sum(dropped)} over {n_moe} layers")
+
+
+# -- phases 9 and 10: moe_gmm and mamba_scan against their plain versions ---
+
+KERNEL_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# (label, E, C, D, F): jamba-v0.1-52b's expert products at B*S = 8192
+# (C = 1280) and 4096 (C = 640) tokens, the decode capacity, unaligned
+GMM_CASES = [("jamba-up-c1280", 16, 1280, 4096, 14336),
+             ("jamba-down-c1280", 16, 1280, 14336, 4096),
+             ("jamba-up-c640", 16, 640, 4096, 14336),
+             ("jamba-down-c640", 16, 640, 14336, 4096),
+             ("decode-c8", 16, 8, 4096, 14336),
+             ("unaligned", 3, 72, 40, 56)]
+# (label, B, S, di, N, stream dtypes xc / dt / bm / cm or None for all
+# in the case's dtype): jamba's mixers at B=2 bf16 and B=1 f32, and the
+# edge shapes of tests/test_kernels.py
+BF, F32 = torch.bfloat16, torch.float32
+SCAN_CASES = [("jamba-b2-model", 2, 4096, 8192, 16, (BF, F32, BF, F32)),
+              ("jamba-b1-f32", 1, 4096, 8192, 16, (F32,) * 4),
+              ("edge-1x64x32x8", 1, 64, 32, 8, None),
+              ("edge-2x128x64x16", 2, 128, 64, 16, None),
+              ("edge-1x96x48x8", 1, 96, 48, 8, None)]
+
+
+def rel_err(got, want) -> float:
+    """max |kernel - plain| / max |plain|: the sums run in another order
+    than the plain version's, so the error scales with the largest
+    output."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp(min=1e-30))
+
+
+def check_gmm(dev) -> dict:
+    """Every case in f32 and bf16; returns {(label, dtype): numbers}."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(13)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, E, C, D, F in GMM_CASES:
+            x = torch.randn((E, C, D), generator=gen, device=dev).to(dtype)
+            w = (torch.randn((E, D, F), generator=gen, device=dev)
+                 * D ** -0.5).to(dtype)
+
+            def kern():
+                return ops.moe_gmm(x, w)
+
+            def plain():
+                return ref.moe_gmm_ref(x, w)
+
+            def library():
+                return torch.bmm(x, w)
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err = rel_err(got, want)
+            tol = KERNEL_REL_TOL[dtype]
+            if not torch.isfinite(got.float()).all() or not err <= tol:
+                fail(f"gmm {label} {dtype}: kernel differs from plain "
+                     f"version ({err:.3g} of max |plain| > {tol})")
+            del got, want
+            flops = 2 * E * C * D * F
+            b, how = bound(nbytes(x, w) + E * C * F * x.element_size(), flops,
+                           BF16_FLOPS_PER_S if dtype == torch.bfloat16
+                           else FP32_FLOPS_PER_S)
+            big = flops > 1e11
+            iters, warm = (3, 1) if big else (20, 3)
+            res = {"max_abs_err": err, "ms": time_ms(kern, iters, warm),
+                   "plain_ms": time_ms(plain, iters, warm),
+                   "library_ms": time_ms(library, iters, warm),
+                   "device_ms": device_ms(kern, "moe_gmm_kernel",
+                                          calls=4 if big else 20),
+                   "bound_ms": b, "bound_by": how}
+            out[(label, dtype)] = res
+            dev_ms = "not measured" if res["device_ms"] is None \
+                else f"{res['device_ms']:.4f} ms"
+            log(f"[gmm] {label} {str(dtype)[6:]} x({E},{C},{D}) w({E},{D},"
+                f"{F}): max err / max |plain| {err:.3g} (tol {tol}); kernel "
+                f"{res['ms']:.4f} ms (device {dev_ms}), plain "
+                f"{res['plain_ms']:.4f} ms, bmm {res['library_ms']:.4f} ms; "
+                f"bound {b:.4f} ms by {how}; kernel at "
+                f"{flops / res['ms'] / 1e9:.2f} TFLOP/s")
+            del x, w
+            torch.cuda.empty_cache()
+    return out
+
+
+def check_scan(dev) -> dict:
+    """Every case in its stream dtypes (the edge shapes in f32 and bf16);
+    returns {(label, xc dtype): numbers}."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(14)
+    cases = []
+    for label, B, S, di, N, dtypes in SCAN_CASES:
+        for dt in ((dtypes,) if dtypes else ((F32,) * 4, (BF,) * 4)):
+            cases.append((label, B, S, di, N, dt))
+    out = {}
+    for label, B, S, di, N, dtypes in cases:
+        xc = torch.randn((B, S, di), generator=gen, device=dev)
+        # dt as the model makes it: softplus around the init's 1e-3..0.1
+        dt = torch.nn.functional.softplus(
+            torch.randn((B, S, di), generator=gen, device=dev) - 4.0)
+        bm = torch.randn((B, S, N), generator=gen, device=dev)
+        cm = torch.randn((B, S, N), generator=gen, device=dev)
+        xc, dt, bm, cm = (t.to(d) for t, d in zip((xc, dt, bm, cm), dtypes))
+        a = -torch.arange(1, N + 1, dtype=torch.float32,
+                          device=dev).repeat(di, 1)    # the S4D-real A
+
+        def kern():
+            return ops.mamba_scan(xc, dt, bm, cm, a)
+
+        def plain():
+            return ref.mamba_scan_ref(xc, dt, bm, cm, a)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = rel_err(got, want)
+        tol = KERNEL_REL_TOL[xc.dtype]
+        if not torch.isfinite(got.float()).all() or not err <= tol:
+            fail(f"scan {label} {dtypes}: kernel differs from plain version "
+                 f"({err:.3g} of max |plain| > {tol})")
+        del got, want
+        # per state element: dt*a, exp, two products, the add, h*C and
+        # the sum over N (f32 on the CUDA cores); per channel dt*x
+        flops = 7 * B * S * di * N + B * S * di
+        b, how = bound(nbytes(xc, dt, bm, cm, a) + xc.numel()
+                       * xc.element_size(), flops)
+        big = S * di >= 2 ** 24
+        res = {"max_abs_err": err,
+               "ms": time_ms(kern, 5 if big else 50, 2 if big else 5),
+               "plain_ms": time_ms(plain, 1 if big else 3, 1),
+               "library_ms": None,
+               "device_ms": device_ms(kern, "mamba_scan_kernel",
+                                      calls=5 if big else 20),
+               "bound_ms": b, "bound_by": how}
+        out[(label, xc.dtype)] = res
+        dev_ms = "not measured" if res["device_ms"] is None \
+            else f"{res['device_ms']:.4f} ms"
+        names = "/".join(str(d)[6:] for d in dtypes)
+        log(f"[scan] {label} ({B},{S},{di},{N}) {names}: max err / max "
+            f"|plain| {err:.3g} (tol {tol}); kernel {res['ms']:.4f} ms "
+            f"(device {dev_ms}), plain {res['plain_ms']:.4f} ms; bound "
+            f"{b:.4f} ms by {how}")
+        del xc, dt, bm, cm, a
+        torch.cuda.empty_cache()
+    return out
+
+
+# -- phases 11 and 12: the jamba-v0.1-52b model path ------------------------
+
+def hybrid_forward_phase(params, cfg, dev) -> dict:
+    """forward_loss at full width, one super-block deep, through the
+    kernels (the resolver's hooks for attention_impl="pallas") and the
+    reference path, in bf16 (B=2) and f32 (B=1)."""
+    from repro_torch.configs import REDUCED_SHAPE, RunConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import _resolve_kernels
+    from repro_torch.models import forward_loss
+
+    hooks = _resolve_kernels(RunConfig(model=cfg, shape=REDUCED_SHAPE,
+                                       attention_impl="pallas"))
+    if (hooks["flash_fn"], hooks["gmm_fn"], hooks["scan_fn"]) != \
+            (ops.flash_attention, ops.moe_gmm, ops.mamba_scan):
+        fail(f"hybrid: attention_impl='pallas' resolves to {hooks}")
+    layers = cfg.block_defs * cfg.n_super
+    kernel_launches = {
+        "flash_attention": sum(m == "attn" for m, _ in layers),
+        "moe_gmm": 3 * sum(f == "moe" for _, f in layers),
+        "mamba_scan": sum(m == "mamba" for m, _ in layers)}
+    rng = np.random.default_rng(2021)
+    out = {}
+    for dtype, B, rel in ((torch.bfloat16, 2, 1e-2), (torch.float32, 1, 1e-4)):
+        S = 4096
+        tok = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+        batch = {"tokens": torch.from_numpy(tok[:, :-1]).to(dev),
+                 "targets": torch.from_numpy(tok[:, 1:]).to(dev)}
+        losses, secs = {}, {}
+        for label, kw in (("kernels", hooks), ("reference", {})):
+            forward_loss(params, cfg, batch, compute_dtype=dtype, **kw)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            loss, parts = forward_loss(params, cfg, batch,
+                                       compute_dtype=dtype, **kw)
+            torch.cuda.synchronize()
+            secs[label] = time.perf_counter() - t0
+            launches = dict(ops.LAUNCHES)
+            want = {name: 0 for name in launches}
+            if label == "kernels":
+                want.update(kernel_launches)
+            if launches != want:
+                fail(f"hybrid {label} {dtype}: launches {launches}, "
+                     f"expected {want}")
+            losses[label] = float(loss)
+            if not math.isfinite(losses[label]):
+                fail(f"hybrid {label} {dtype}: loss {losses[label]}")
+            log(f"[hybrid] {cfg.name} {len(layers)}L {str(dtype)[6:]} B={B} "
+                f"S={S} via {label}: loss {losses[label]:.6f} (aux "
+                f"{float(parts['aux']):.6f}), {secs[label]:.3f} s "
+                f"({B * S / secs[label]:.1f} tokens/s), launches "
+                f"{ {k: launches[k] for k in kernel_launches} }, peak "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+            if dtype != torch.bfloat16:
+                continue
+            # where each path's time goes, on the main path's own shapes
+            prof = profile_forward(
+                lambda: forward_loss(params, cfg, batch,
+                                     compute_dtype=dtype, **kw),
+                secs[label], tag=f"hybrid {label}",
+                kernels=("flash_attention_kernel", "moe_gmm_kernel",
+                         "mamba_scan_kernel"))
+            if label == "kernels":
+                out["launches"] = {k: launches[k] for k in kernel_launches}
+                out["device_ms"] = prof
+        d = abs(losses["kernels"] - losses["reference"]) \
+            / abs(losses["reference"])
+        if d > rel:
+            fail(f"hybrid {dtype}: kernel loss {losses['kernels']} vs "
+                 f"reference {losses['reference']} ({d:.3g} relative > "
+                 f"{rel})")
+        log(f"[hybrid] {str(dtype)[6:]}: kernels vs reference loss "
+            f"{d:.3g} relative (tol {rel})")
+        out[str(dtype)] = {"losses": losses, "secs": secs, "rel": d}
+        del batch
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -693,6 +964,8 @@ def main() -> int:
     drive("dataplane", [dp_spec], list(range(64)))
 
     flash = check_flash(dev)
+    gmm = check_gmm(dev)
+    scan = check_scan(dev)
 
     from repro_torch.configs import get_config
     from repro_torch.models import init_params, param_count
@@ -705,10 +978,33 @@ def main() -> int:
         f"the card in {time.perf_counter() - t0:.2f} s")
     fwd = forward_phase(params, cfg, dev)
     serve_phase(params, cfg, dev)
+    del params                         # jamba's 53.2 GB need the room
+    torch.cuda.empty_cache()
+
+    cfg = replace(get_config("jamba-v0.1-52b"), num_layers=8)
+    t0 = time.perf_counter()
+    params = init_params(cfg, 2021, device=dev)
+    torch.cuda.synchronize()
+    log(f"[model] {cfg.name}: {param_count(params) / 1e9:.3f} B f32 "
+        f"parameters ({cfg.num_layers} of 32 layers: one super-block; "
+        f"d_model {cfg.d_model}, 16 experts of d_ff {cfg.moe.d_ff_expert}) "
+        f"initialised on the card in {time.perf_counter() - t0:.2f} s; "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB allocated")
+    hybrid = hybrid_forward_phase(params, cfg, dev)
+    serve_phase(params, cfg, dev, tag="served")
 
     yi = flash[("yi-9b", torch.bfloat16)]
     if yi["device_ms"] is None:          # the forward's own profile
         yi["device_ms"] = fwd["flash_device_ms"]
+    # the main path's own shapes: the bf16 forward's up product and scan
+    main_gmm = gmm[("jamba-up-c1280", torch.bfloat16)]
+    main_scan = scan[("jamba-b2-model", torch.bfloat16)]
+    for res, name in ((main_gmm, "moe_gmm_kernel"),
+                      (main_scan, "mamba_scan_kernel")):
+        if res["device_ms"] is None:
+            res["device_ms"] = hybrid["device_ms"][name]
+    keys = ("max_abs_err", "ms", "plain_ms", "device_ms", "bound_ms",
+            "bound_by", "library_ms")
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": CU_SOURCE,
          "replaces": REPLACES[name],
@@ -716,9 +1012,15 @@ def main() -> int:
          **kernels[name]} for name in REPLACES] + [
         {"name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
          "replaces": FLASH_REPLACES, "launches": fwd["launches"],
-         **{key: yi[key] for key in ("max_abs_err", "ms", "plain_ms",
-                                     "device_ms", "bound_ms", "bound_by",
-                                     "library_ms")}}]}
+         **{key: yi[key] for key in keys}},
+        {"name": "moe_gmm", "route": "cuda", "source": GMM_SOURCE,
+         "replaces": GMM_REPLACES,
+         "launches": hybrid["launches"]["moe_gmm"],
+         **{key: main_gmm[key] for key in keys}},
+        {"name": "mamba_scan", "route": "cuda", "source": SCAN_SOURCE,
+         "replaces": SCAN_REPLACES,
+         "launches": hybrid["launches"]["mamba_scan"],
+         **{key: main_scan[key] for key in keys}}]}
     print(json.dumps(report))
     print(smi)
     print(json.dumps({"ok": True, "device": {

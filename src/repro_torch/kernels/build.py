@@ -31,7 +31,8 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "build_dir", "library",
            "last_build_seconds"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (_CSRC / "campaign_sweep.cu", _CSRC / "flash_attention.cu")
+SOURCES = (_CSRC / "campaign_sweep.cu", _CSRC / "flash_attention.cu",
+           _CSRC / "moe_gmm.cu", _CSRC / "mamba_scan.cu")
 # IEEE division and square root, no fast math: the allocator's floors
 # depend on every f32 operation rounding on its own
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -111,8 +112,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # q_offset, scale, stream
     lib.flash_attention.argtypes = [p, p, p, p, p, *[i] * 10,
                                     ctypes.c_float, p]
+    # x, w, o, x_bf16, w_bf16, E, C, D, F, stream
+    lib.moe_gmm.argtypes = [p, p, p, *[i] * 6, p]
+    # xc, dt, bm, cm, a, y, types, B, S, di, N, stream
+    lib.mamba_scan.argtypes = [p, p, p, p, p, p, *[i] * 5, p]
     for fn in (lib.campaign_alloc, lib.campaign_advance, lib.campaign_bill,
-               lib.flash_attention):
+               lib.flash_attention, lib.moe_gmm, lib.mamba_scan):
         fn.restype = ctypes.c_int
     return lib
 

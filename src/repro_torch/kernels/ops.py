@@ -17,6 +17,8 @@ run can show that its main path went through the kernels.
   campaign_bill       campaign_bill     kernels/campaign_sweep.py:117
   flash_attention     flash_attention   kernels/flash_attention.py:79
   (and flash_attention_kernel, its kernel-level entry point)
+  moe_gmm             moe_gmm           kernels/moe_gmm.py:39
+  mamba_scan          mamba_scan        kernels/mamba_scan.py:51
 """
 from __future__ import annotations
 
@@ -29,11 +31,13 @@ from repro_torch.kernels import ref
 
 __all__ = ["LAUNCHES", "reset_launches", "campaign_preempt",
            "campaign_match", "campaign_advance", "campaign_bill",
-           "flash_attention", "flash_attention_kernel"]
+           "flash_attention", "flash_attention_kernel", "moe_gmm",
+           "mamba_scan"]
 
 LAUNCHES: Dict[str, int] = {"campaign_preempt": 0, "campaign_match": 0,
                             "campaign_advance": 0, "campaign_bill": 0,
-                            "flash_attention": 0}
+                            "flash_attention": 0, "moe_gmm": 0,
+                            "mamba_scan": 0}
 
 
 def reset_launches() -> None:
@@ -146,13 +150,13 @@ def campaign_bill(live: torch.Tensor, rate: torch.Tensor,
 
 # -- flash attention ---------------------------------------------------------
 
-_ATTN_DTYPES = (torch.float32, torch.bfloat16)
+_FLOAT_DTYPES = (torch.float32, torch.bfloat16)
 _MAX_HEAD_DIM = 256          # the kernel's largest shared-memory tile
 
 
 def _check_attention(op: str, q: torch.Tensor, k: torch.Tensor,
                      v: torch.Tensor, rank: int, kv_len, q_offset) -> None:
-    if q.dtype not in _ATTN_DTYPES:
+    if q.dtype not in _FLOAT_DTYPES:
         raise TypeError(f"{op}: q must be float32 or bfloat16, got {q.dtype}")
     for name, t in (("k", k), ("v", v)):
         if t.dtype != q.dtype:
@@ -243,3 +247,84 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                   Skv if kv_len is None else int(kv_len), int(q_offset),
                   D ** -0.5 if scale is None else float(scale))
     return o
+
+
+# -- MoE grouped product and Mamba selective scan ----------------------------
+
+def _check_stream(op: str, name: str, t: torch.Tensor, rank: int,
+                  device: torch.device) -> None:
+    if t.dtype not in _FLOAT_DTYPES:
+        raise TypeError(f"{op}: {name} must be float32 or bfloat16, got "
+                        f"{t.dtype}")
+    if t.dim() != rank:
+        raise ValueError(f"{op}: {name} must have rank {rank}, got shape "
+                         f"{tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{op}: {name} on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{op}: {name} must be contiguous")
+
+
+def _is_bf16(t: torch.Tensor) -> int:
+    return int(t.dtype == torch.bfloat16)
+
+
+def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Per-expert product x (E,C,D) @ w (E,D,F) -> (E,C,F) with f32
+    accumulation, in x's dtype.  x and w are each f32 or bf16; any C, D
+    and F (ragged tiles are masked in the kernel, nothing is padded)."""
+    op = "moe_gmm"
+    _check_stream(op, "x", x, 3, x.device)
+    _check_stream(op, "w", w, 3, x.device)
+    E, C, D = x.shape
+    F = w.shape[2]
+    if tuple(w.shape[:2]) != (E, D):
+        raise ValueError(f"{op}: x {tuple(x.shape)} vs w {tuple(w.shape)}: "
+                         "expected w (E, D, F)")
+    if not _on_card(x, op):
+        return ref.moe_gmm_ref(x, w)
+    if E > 65535 or -(-C // 64) > 65535:
+        raise ValueError(f"{op}: {E} experts of {C} rows exceed the grid")
+    from repro_torch.kernels.build import library
+    o = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
+    _raise_on(library().moe_gmm(
+        x.data_ptr(), w.data_ptr(), o.data_ptr(), _is_bf16(x), _is_bf16(w),
+        E, C, D, F, _stream(x)), op)
+    LAUNCHES[op] += 1
+    return o
+
+
+_MAX_STATE = 32              # the kernel keeps a channel's N states in a warp
+
+
+def mamba_scan(xc: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
+               cm: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """Selective scan from a zero state: xc/dt (B,S,di), bm/cm (B,S,N),
+    a (di,N) f32 -> y (B,S,di) in xc's dtype (before the gate and the D
+    skip).  Each stream is f32 or bf16 on its own; N <= 32."""
+    op = "mamba_scan"
+    for name, t in (("xc", xc), ("dt", dt), ("bm", bm), ("cm", cm)):
+        _check_stream(op, name, t, 3, xc.device)
+    B, S, di = xc.shape
+    N = bm.shape[2]
+    if tuple(dt.shape) != (B, S, di) or tuple(bm.shape) != (B, S, N) or \
+            tuple(cm.shape) != (B, S, N):
+        raise ValueError(f"{op}: shapes xc {tuple(xc.shape)} dt "
+                         f"{tuple(dt.shape)} bm {tuple(bm.shape)} cm "
+                         f"{tuple(cm.shape)}")
+    _check(f"{op} a", a, torch.float32, (di, N), xc.device)
+    if not 1 <= N <= _MAX_STATE:
+        raise ValueError(f"{op}: state size {N}; the kernel takes 1 to "
+                         f"{_MAX_STATE}")
+    if not _on_card(xc, op):
+        return ref.mamba_scan_ref(xc, dt, bm, cm, a)
+    if B > 65535:
+        raise ValueError(f"{op}: batch {B} exceeds the grid")
+    from repro_torch.kernels.build import library
+    y = torch.empty((B, S, di), dtype=xc.dtype, device=xc.device)
+    types = sum(_is_bf16(t) << i for i, t in enumerate((xc, dt, bm, cm)))
+    _raise_on(library().mamba_scan(
+        xc.data_ptr(), dt.data_ptr(), bm.data_ptr(), cm.data_ptr(),
+        a.data_ptr(), y.data_ptr(), types, B, S, di, N, _stream(xc)), op)
+    LAUNCHES[op] += 1
+    return y

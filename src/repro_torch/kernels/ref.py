@@ -3,6 +3,9 @@
 ``flash_attention_ref`` is the plain version of csrc/flash_attention.cu
 and the port of the JAX package's ``kernels/ref.py`` oracle of the same
 name: f32 throughout, masked scores -1e30, output in q's dtype.
+``moe_gmm_ref`` (csrc/moe_gmm.cu) and ``mamba_scan_ref``
+(csrc/mamba_scan.cu) port the oracles of the same names: f32 math,
+output in the first input's dtype.
 
 The campaign sweep's per-tick ops follow.
 
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 __all__ = ["flash_attention_ref", "flash_attention_model_ref",
+           "moe_gmm_ref", "mamba_scan_ref",
            "campaign_alloc_ref", "campaign_preempt_ref",
            "campaign_match_ref", "campaign_advance_ref",
            "campaign_bill_ref"]
@@ -70,6 +74,32 @@ def flash_attention_model_ref(q: torch.Tensor, k: torch.Tensor,
     vv = v.transpose(1, 2).reshape(B * Hkv, -1, D)
     o = flash_attention_ref(qk, kk, vv, causal=causal, scale=D ** -0.5)
     return o.reshape(B, H, Sq, D).transpose(1, 2)
+
+
+def moe_gmm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Per-expert product: x (E,C,D) @ w (E,D,F) -> (E,C,F) in f32,
+    cast to x's dtype."""
+    return torch.einsum("ecd,edf->ecf", x.to(torch.float32),
+                        w.to(torch.float32)).to(x.dtype)
+
+
+def mamba_scan_ref(xc: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
+                   cm: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """Sequential selective scan from a zero state: xc/dt (B,S,di),
+    bm/cm (B,S,N), a (di,N) -> y (B,S,di) in xc's dtype, with
+    ``h = exp(dt_t a) h + (dt_t x_t) B_t`` and ``y_t = sum_N h C_t``
+    in f32 (before the gate and the D skip)."""
+    B, S, di = xc.shape
+    xf, df, bf, cf = (t.to(torch.float32) for t in (xc, dt, bm, cm))
+    af = a.to(torch.float32)
+    h = torch.zeros((B, di, a.shape[1]), dtype=torch.float32,
+                    device=xc.device)
+    ys = []
+    for t in range(S):
+        a_bar = torch.exp(df[:, t, :, None] * af[None])        # (B,di,N)
+        h = a_bar * h + (df[:, t] * xf[:, t])[:, :, None] * bf[:, t, None, :]
+        ys.append((h * cf[:, t, None, :]).sum(-1))             # (B,di)
+    return torch.stack(ys, dim=1).to(xc.dtype)
 
 
 # -- campaign-sweep tick ops -----------------------------------------------

@@ -1,10 +1,10 @@
 """Step builders for the port's model path.
 
 The port of the JAX package's ``launch/steps.py`` for what runs without
-a gradient: ``_resolve_flash`` maps ``RunConfig.attention_impl ==
-"pallas"`` (the JAX package's name for its flash kernel) to the CUDA
-flash kernel's wrapper, and the prefill / decode steps close over the
-config.  PyTorch runs eagerly, so nothing is jitted.
+a gradient: ``_resolve_kernels`` maps ``RunConfig.attention_impl ==
+"pallas"`` (the JAX package's only switch to its kernels) to the CUDA
+kernels' wrappers, and the prefill / decode steps close over the config.
+PyTorch runs eagerly, so nothing is jitted.
 """
 from __future__ import annotations
 
@@ -18,11 +18,20 @@ def _dtype(run: RunConfig) -> torch.dtype:
     return getattr(torch, run.compute_dtype)
 
 
-def _resolve_flash(run: RunConfig, flash_fn=None):
-    if flash_fn is None and run.attention_impl == "pallas":
-        from repro_torch.kernels import ops as kops
-        flash_fn = kops.flash_attention
-    return flash_fn
+def _resolve_kernels(run: RunConfig) -> dict:
+    """The forward's kernel hooks for ``run``: with ``attention_impl ==
+    "pallas"``, ``flash_fn`` / ``gmm_fn`` / ``scan_fn`` are the flash
+    attention, ``moe_gmm`` and ``mamba_scan`` wrappers; otherwise all
+    three are None and the forward computes exactly the JAX package's
+    reference path (chunked attention, einsum experts, chunked scan).
+    Both settings compute the same function within the kernels'
+    tolerances, so the switch adds no behaviour the JAX package lacks;
+    it takes no new ``RunConfig`` field."""
+    if run.attention_impl != "pallas":
+        return {"flash_fn": None, "gmm_fn": None, "scan_fn": None}
+    from repro_torch.kernels import ops as kops
+    return {"flash_fn": kops.flash_attention, "gmm_fn": kops.moe_gmm,
+            "scan_fn": kops.mamba_scan}
 
 
 def make_prefill_step(cfg: ModelConfig, run: RunConfig):

@@ -1,0 +1,135 @@
+"""Token-choice top-k MoE with capacity-bounded scatter dispatch.
+
+The port of the JAX package's ``models/moe.py`` on its single-device
+path (``_apply_moe_naive``, which the JAX package takes with no mesh):
+tokens are scattered into an (E, C, D) capacity buffer, the expert FFNs
+run as three grouped products over the expert axis, and the outputs
+gather back weighted by the renormalized router probabilities.  The
+sharded all-to-all dispatch is not ported (ROADMAP A14).
+
+``_expert_ffn`` takes the grouped product through its ``gmm_fn`` hook
+(the CUDA ``moe_gmm`` kernel's wrapper on the model path); without it
+the products are the reference's einsums.  Both compute the same
+function within the kernel's tolerance.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import dense_init
+
+
+def init_moe(gen, d_model, moe, device, ffn_type="swiglu"):
+    """The JAX tree's leaves and draws: ``dense_init`` takes fan-in from
+    ``shape[0]``, which is E for the (E, d, F) expert weights, as in the
+    JAX package."""
+    E, Fe = moe.num_experts, moe.d_ff_expert
+    p = {"router": dense_init(gen, (d_model, E), device),
+         "wi": dense_init(gen, (E, d_model, Fe), device),
+         "wo": dense_init(gen, (E, Fe, d_model), device, in_axis_size=Fe)}
+    if ffn_type == "swiglu":
+        p["wg"] = dense_init(gen, (E, d_model, Fe), device)
+    if moe.num_shared_experts:
+        Fs = moe.d_ff_shared * moe.num_shared_experts
+        p["shared_wi"] = dense_init(gen, (d_model, Fs), device)
+        p["shared_wo"] = dense_init(gen, (Fs, d_model), device,
+                                    in_axis_size=Fs)
+        if ffn_type == "swiglu":
+            p["shared_wg"] = dense_init(gen, (d_model, Fs), device)
+    return p
+
+
+def _einsum_gmm(x, w):
+    return torch.einsum("ecd,edf->ecf", x, w)
+
+
+def _expert_ffn(p, buf, ffn_type, gmm_fn=None):
+    """buf: (E, C, D) -> (E, C, D), three grouped products over experts
+    through ``gmm_fn`` (x (E,C,D), w (E,D,F) -> (E,C,F)); the weights are
+    cast to buf's dtype per use, as in the JAX package."""
+    gmm = gmm_fn or _einsum_gmm
+    dt = buf.dtype
+    if ffn_type == "swiglu":
+        h = F.silu(gmm(buf, p["wg"].to(dt))) * gmm(buf, p["wi"].to(dt))
+    elif ffn_type == "squared_relu":
+        h = torch.square(F.relu(gmm(buf, p["wi"].to(dt))))
+    else:
+        # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(gmm(buf, p["wi"].to(dt)), approximate="tanh")
+    return gmm(h, p["wo"].to(dt))
+
+
+def capacity(num_tokens, moe):
+    c = int(num_tokens * moe.top_k * moe.capacity_factor / moe.num_experts)
+    return max(8, -(-c // 8) * 8)        # >=8, rounded up to multiple of 8
+
+
+def apply_moe(p, x, moe, ffn_type="swiglu", gmm_fn=None):
+    """x: (B,S,D) -> (y, aux_loss).  Token-choice top-k with capacity
+    drop, on the JAX package's single-device (naive) dispatch."""
+    return _apply_moe_naive(p, x, moe, ffn_type, gmm_fn=gmm_fn)
+
+
+def _shared_expert(p, x, ffn_type):
+    if "shared_wi" not in p:
+        return torch.zeros_like(x)
+    dt = x.dtype
+    B, S, D = x.shape
+    xt = x.reshape(B * S, D)
+    if ffn_type == "swiglu":
+        h = (F.silu(xt @ p["shared_wg"].to(dt))
+             * (xt @ p["shared_wi"].to(dt)))
+    else:
+        h = F.gelu(xt @ p["shared_wi"].to(dt), approximate="tanh")
+    return (h @ p["shared_wo"].to(dt)).reshape(B, S, D)
+
+
+def _route(p, xt, moe, C):
+    """Router of T tokens xt (T, D) into capacity C.  Returns (probs
+    (T,E) f32, top_p (T,K) renormalized, top_e (T,K), eid (K*T,) and pos
+    (K*T,) in slot-major order, keep = pos < C)."""
+    E, K = moe.num_experts, moe.top_k
+    logits = (xt @ p["router"].to(xt.dtype)).to(torch.float32)   # (T,E)
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = torch.topk(probs, K, dim=-1)      # descending, as top_k
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    # position of each (token, slot) within its expert, slot-major order
+    eid = top_e.T.reshape(-1)                                    # (K*T,)
+    onehot = F.one_hot(eid, E)                                   # (KT,E)
+    pos = torch.gather(onehot.cumsum(0) - 1, 1, eid[:, None])[:, 0]
+    return probs, top_p, top_e, eid, pos, pos < C
+
+
+def _apply_moe_naive(p, x, moe, ffn_type="swiglu", gmm_fn=None):
+    B, S, D = x.shape
+    dt = x.dtype
+    T = B * S
+    E, K = moe.num_experts, moe.top_k
+    C = capacity(T, moe)
+
+    xt = x.reshape(T, D)
+    probs, top_p, top_e, eid, pos, keep = _route(p, xt, moe, C)
+    slot = torch.where(keep, pos, torch.zeros_like(pos))
+
+    # dispatch: scatter tokens into (E, C, D).  A dropped token adds zeros
+    # into slot 0 of its expert, and each kept (expert, slot) pair is
+    # unique, so the sums are exact in any order of accumulation.
+    x_rep = xt.repeat(K, 1)                                      # slot-major
+    buf = torch.zeros((E, C, D), dtype=dt, device=x.device)
+    buf.index_put_((eid, slot), x_rep * keep[:, None].to(dt),
+                   accumulate=True)
+
+    out_buf = _expert_ffn(p, buf, ffn_type, gmm_fn)              # (E,C,D)
+
+    # combine: gather back, weight by router prob
+    gath = out_buf[eid, slot]                                    # (KT,D)
+    w = (top_p.T.reshape(-1) * keep).to(dt)                      # slot-major
+    yt = (gath * w[:, None]).reshape(K, T, D).sum(0)
+    y = yt.reshape(B, S, D) + _shared_expert(p, x, ffn_type)
+
+    # load-balancing aux loss (Switch-style)
+    frac_tokens = F.one_hot(top_e[:, 0], E).to(torch.float32).mean(0)
+    frac_probs = probs.mean(0)
+    aux = E * torch.sum(frac_tokens * frac_probs) * moe.aux_loss_weight
+    return y, aux

@@ -1,25 +1,29 @@
 """Block / super-block assembly and the layer stack.
 
-The port of the JAX package's ``models/transformer.py`` for the
-("attn", "dense") sub-block: pre-norm GQA self-attention, then a pre-norm
-dense FFN.  The JAX package stacks each leaf on a leading ``n_super`` axis
-and scans it; here the stack is a list with one dict per super-block
-(same keys, ``{"b0": ...}``), walked by a Python loop.  Nothing here
-takes a gradient, so there is no rematerialization.  Every other branch
-of the JAX package raises, naming the ROADMAP item that ports it
-(encoder-decoder inputs raise in ``models/model.py``).
+The port of the JAX package's ``models/transformer.py`` for the mixers
+"attn" (GQA self-attention) and "mamba", and the FFNs "dense", "moe"
+and "none": each sub-block is a pre-norm mixer, then a pre-norm FFN.
+The JAX package stacks each leaf on a leading ``n_super`` axis and scans
+it; here the stack is a list with one dict per super-block (same keys,
+``{"b0": ..., "b7": ...}``), walked by a Python loop.  Nothing here
+takes a gradient, so there is no rematerialization.  The kernels come
+in through hooks: ``flash_fn`` (attention), ``gmm_fn`` (MoE experts)
+and ``scan_fn`` (Mamba).  Every other branch of the JAX package raises,
+naming the ROADMAP item that ports it (encoder-decoder inputs raise in
+``models/model.py``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mb
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import apply_ffn, apply_norm, init_ffn, init_norm
 
-# the ROADMAP item that ports each part the JAX package has beyond the
-# ("attn", "dense") sub-block with GQA
-_NOT_PORTED = {"mla": "A9", "qk_norm": "A8", "moe": "A8", "mamba": "A10",
-               "mlstm": "A11", "slstm": "A11"}
+# the ROADMAP item that ports each part the JAX package has beyond GQA
+# attention, Mamba, and dense / MoE FFNs
+_NOT_PORTED = {"mla": "A9", "qk_norm": "A8", "mlstm": "A11", "slstm": "A11"}
 
 
 def _check_supported(cfg, mixer, ffn):
@@ -31,7 +35,7 @@ def _check_supported(cfg, mixer, ffn):
             raise NotImplementedError(
                 f"{cfg.name}: {part!r} is not ported yet: ROADMAP "
                 f"{_NOT_PORTED[part]}")
-    if (mixer, ffn) != ("attn", "dense"):
+    if mixer not in ("attn", "mamba") or ffn not in ("dense", "moe", "none"):
         raise ValueError((mixer, ffn))
 
 
@@ -41,48 +45,82 @@ def _check_supported(cfg, mixer, ffn):
 
 def init_subblock(gen, cfg, mixer, ffn, device):
     _check_supported(cfg, mixer, ffn)
-    return {"norm1": init_norm(cfg.d_model, device, cfg.norm_type),
-            "mixer": attn.init_attention(
-                gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                cfg.head_dim, device),
-            "norm2": init_norm(cfg.d_model, device, cfg.norm_type),
-            "ffn": init_ffn(gen, cfg.d_model, cfg.d_ff, device, cfg.ffn_type)}
+    p = {"norm1": init_norm(cfg.d_model, device, cfg.norm_type)}
+    if mixer == "attn":
+        p["mixer"] = attn.init_attention(
+            gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+            device)
+    else:
+        p["mixer"] = mb.init_mamba(gen, cfg.d_model, cfg.mamba, device)
+    if ffn == "dense":
+        p["norm2"] = init_norm(cfg.d_model, device, cfg.norm_type)
+        p["ffn"] = init_ffn(gen, cfg.d_model, cfg.d_ff, device, cfg.ffn_type)
+    elif ffn == "moe":
+        p["norm2"] = init_norm(cfg.d_model, device, cfg.norm_type)
+        p["ffn"] = moe_mod.init_moe(gen, cfg.d_model, cfg.moe, device,
+                                    cfg.ffn_type)
+    return p
 
 
 def apply_subblock(p, x, cfg, mixer, ffn, *, positions, causal, q_chunk,
-                   flash_fn=None):
+                   flash_fn=None, gmm_fn=None, scan_fn=None):
     """Full-sequence apply.  Returns (x, cache_seed, aux)."""
     _check_supported(cfg, mixer, ffn)
     h = apply_norm(p["norm1"], x, cfg.norm_type)
-    y, (k, v) = attn.attention_forward(
-        p["mixer"], h, positions=positions, causal=causal,
-        rope_theta=cfg.rope_theta, use_rope=(cfg.pos_embedding == "rope"),
-        q_chunk=q_chunk, flash_fn=flash_fn)
+    if mixer == "attn":
+        y, (k, v) = attn.attention_forward(
+            p["mixer"], h, positions=positions, causal=causal,
+            rope_theta=cfg.rope_theta, use_rope=(cfg.pos_embedding == "rope"),
+            q_chunk=q_chunk, flash_fn=flash_fn)
+        seed = {"k": k, "v": v}
+    else:
+        y, (h_last, conv_last) = mb.mamba_forward(p["mixer"], h, cfg.mamba,
+                                                  scan_fn=scan_fn)
+        seed = {"h": h_last, "conv": conv_last}
     x = x + y
-    x = x + apply_ffn(p["ffn"], apply_norm(p["norm2"], x, cfg.norm_type),
-                      cfg.ffn_type)
-    return x, {"k": k, "v": v}, torch.zeros((), dtype=torch.float32,
-                                            device=x.device)
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if ffn == "dense":
+        x = x + apply_ffn(p["ffn"], apply_norm(p["norm2"], x, cfg.norm_type),
+                          cfg.ffn_type)
+    elif ffn == "moe":
+        y, aux = moe_mod.apply_moe(p["ffn"],
+                                   apply_norm(p["norm2"], x, cfg.norm_type),
+                                   cfg.moe, cfg.ffn_type, gmm_fn=gmm_fn)
+        x = x + y
+    return x, seed, aux
 
 
 def apply_subblock_decode(p, x, state, cfg, mixer, ffn, *, pos):
-    """One-token apply.  Returns (x, new_state); the KV cache in
-    ``state`` is written in place."""
+    """One-token apply.  Returns (x, new_state); a KV cache in ``state``
+    is written in place, a Mamba state is replaced."""
     _check_supported(cfg, mixer, ffn)
     h = apply_norm(p["norm1"], x, cfg.norm_type)
-    y, new_state = attn.attention_decode(
-        p["mixer"], h, state, pos=pos, rope_theta=cfg.rope_theta,
-        use_rope=(cfg.pos_embedding == "rope"))
+    if mixer == "attn":
+        y, new_state = attn.attention_decode(
+            p["mixer"], h, state, pos=pos, rope_theta=cfg.rope_theta,
+            use_rope=(cfg.pos_embedding == "rope"))
+    else:
+        y, new_state = mb.mamba_decode(p["mixer"], h, state, cfg.mamba)
     x = x + y
-    x = x + apply_ffn(p["ffn"], apply_norm(p["norm2"], x, cfg.norm_type),
-                      cfg.ffn_type)
+    if ffn == "dense":
+        x = x + apply_ffn(p["ffn"], apply_norm(p["norm2"], x, cfg.norm_type),
+                          cfg.ffn_type)
+    elif ffn == "moe":
+        y, _ = moe_mod.apply_moe(p["ffn"],
+                                 apply_norm(p["norm2"], x, cfg.norm_type),
+                                 cfg.moe, cfg.ffn_type)
+        x = x + y
     return x, new_state
 
 
 def init_subblock_state(cfg, idx_def, batch, max_len, dtype, device):
-    _check_supported(cfg, *cfg.block_defs[idx_def])
-    return attn.init_kv_cache(batch, max_len, cfg.num_kv_heads, cfg.head_dim,
-                              dtype, device)
+    mixer, ffn = cfg.block_defs[idx_def]
+    _check_supported(cfg, mixer, ffn)
+    if mixer == "attn":
+        return attn.init_kv_cache(batch, max_len, cfg.num_kv_heads,
+                                  cfg.head_dim, dtype, device)
+    return mb.init_mamba_state(batch, cfg.d_model, cfg.mamba, dtype, device)
 
 
 # --------------------------------------------------------------------------
@@ -96,9 +134,15 @@ def init_stack(gen, cfg, device):
 
 
 def apply_stack(stack_params, x, cfg, *, positions, causal=True, q_chunk=1024,
-                collect_cache=False, flash_fn=None):
-    """Run the super-blocks over x.  Returns (x, caches|None, aux), caches
-    being one ``{"b<i>": {"k","v"}}`` per super-block."""
+                collect_cache=False, flash_fn=None, gmm_fn=None,
+                scan_fn=None):
+    """Run the super-blocks over x.  Returns (x, caches|None, aux): caches
+    are one ``{"b<i>": seed}`` per super-block (``{"k","v"}`` for
+    attention, ``{"h","conv"}`` for Mamba), aux is the sum of the MoE
+    layers' aux losses."""
+    if collect_cache and scan_fn is not None:
+        raise ValueError("apply_stack: the scan kernel returns no Mamba "
+                         "state, so a cache is collected without scan_fn")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
     for layer_p in stack_params:
@@ -106,7 +150,8 @@ def apply_stack(stack_params, x, cfg, *, positions, causal=True, q_chunk=1024,
         for i, (m, f) in enumerate(cfg.block_defs):
             x, seeds[f"b{i}"], a = apply_subblock(
                 layer_p[f"b{i}"], x, cfg, m, f, positions=positions,
-                causal=causal, q_chunk=q_chunk, flash_fn=flash_fn)
+                causal=causal, q_chunk=q_chunk, flash_fn=flash_fn,
+                gmm_fn=gmm_fn, scan_fn=scan_fn)
             aux = aux + a
         if collect_cache:
             caches.append(seeds)
@@ -114,8 +159,8 @@ def apply_stack(stack_params, x, cfg, *, positions, causal=True, q_chunk=1024,
 
 
 def decode_stack(stack_params, x, caches, cfg, *, pos):
-    """One-token decode through every super-block; caches are written in
-    place and returned."""
+    """One-token decode through every super-block; KV caches are written
+    in place, and the caches are returned."""
     new_caches = []
     for layer_p, cache in zip(stack_params, caches):
         new_cache = {}

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain versions, on the card:
-the campaign tick kernels and the flash attention kernel.
+the campaign tick kernels, the flash attention kernel, and the MoE
+grouped product and Mamba selective scan.
 
 Every test here carries the ``cuda`` marker and skips without an NVIDIA
 GPU (a CUDA kernel has no CPU mode).  The file imports neither JAX nor
@@ -110,7 +111,8 @@ def test_sweep_through_kernels_equals_plain_path(cuda):
     got = sweep(specs, [0, 1])
     assert ops.LAUNCHES == {"campaign_preempt": 384, "campaign_match": 192,
                             "campaign_advance": 192, "campaign_bill": 192,
-                            "flash_attention": 0}
+                            "flash_attention": 0, "moe_gmm": 0,
+                            "mamba_scan": 0}
     want = sweep(specs, [0, 1], use_kernels=False)
     for a, b in zip(got.rows, want.rows):
         assert a["cost"] == pytest.approx(b["cost"], rel=1e-5)
@@ -198,3 +200,100 @@ def test_model_forward_through_the_kernel(cuda):
     want, _ = forward_loss(params, cfg, batch, compute_dtype=torch.float32,
                            flash_fn=ref.flash_attention_model_ref)
     assert float(got) == pytest.approx(float(want), rel=1e-5)
+
+
+# -- moe_gmm and mamba_scan ----------------------------------------------------
+
+# max |kernel - plain| / max |plain|: the sums run in another order than
+# the plain version's, so the error scales with the largest output
+REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def _rel_err(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp(min=1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype,w_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("E,C,D,F", [
+    (2, 64, 32, 64),
+    (3, 72, 40, 56),                     # unaligned everywhere
+    (4, 8, 256, 96),                     # decode-sized capacity
+    (2, 130, 300, 70),                   # ragged tiles on every axis
+])
+def test_moe_gmm_kernel_equals_plain_version(cuda, E, C, D, F, x_dtype,
+                                             w_dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda).manual_seed(E * C + F)
+    x = _randn(gen, (E, C, D), x_dtype)
+    w = _randn(gen, (E, D, F), w_dtype)
+    before = ops.LAUNCHES["moe_gmm"]
+    got = ops.moe_gmm(x, w)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["moe_gmm"] == before + 1
+    assert got.dtype == x_dtype and got.shape == (E, C, F)
+    assert _rel_err(got, ref.moe_gmm_ref(x, w)) <= REL_TOL[x_dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mix", ["f32", "bf16", "model"])
+@pytest.mark.parametrize("B,S,di,N", [
+    (1, 64, 32, 8),
+    (2, 128, 64, 16),
+    (1, 96, 48, 8),                      # di not a power of two
+    (2, 70, 33, 5),                      # N not a power of two, ragged S
+    (1, 40, 24, 32),                     # the largest state
+])
+def test_mamba_scan_kernel_equals_plain_version(cuda, B, S, di, N, mix):
+    """Streams in f32, in bf16, or as the model passes them (xc and Bm
+    in bf16, dt and Cm in f32)."""
+    gen = torch.Generator(device=cuda).manual_seed(B * S + di)
+    bf = torch.bfloat16
+    dtypes = {"f32": (torch.float32,) * 4, "bf16": (bf,) * 4,
+              "model": (bf, torch.float32, bf, torch.float32)}[mix]
+    xc = torch.randn((B, S, di), generator=gen, device=cuda)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, di), generator=gen, device=cuda))
+    bm = torch.randn((B, S, N), generator=gen, device=cuda)
+    cm = torch.randn((B, S, N), generator=gen, device=cuda)
+    xc, dt, bm, cm = (t.to(d) for t, d in zip((xc, dt, bm, cm), dtypes))
+    a = -torch.exp(torch.randn((di, N), generator=gen, device=cuda))
+    before = ops.LAUNCHES["mamba_scan"]
+    got = ops.mamba_scan(xc, dt, bm, cm, a)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["mamba_scan"] == before + 1
+    assert got.dtype == xc.dtype and got.shape == (B, S, di)
+    assert _rel_err(got, ref.mamba_scan_ref(xc, dt, bm, cm, a)) \
+        <= REL_TOL[xc.dtype]
+
+
+@pytest.mark.cuda
+def test_hybrid_forward_through_the_kernels(cuda):
+    """Reduced jamba on the card: the kernel path's loss equals the
+    reference path's; one flash, 3 x 4 moe_gmm and 7 mamba_scan
+    launches."""
+    from repro_torch.configs import REDUCED_SHAPE, RunConfig, get_reduced
+    from repro_torch.launch.steps import _resolve_kernels
+    from repro_torch.models import forward_loss, init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_reduced("jamba-v0.1-52b")
+    params = init_params(cfg, 0, device=cuda)
+    tok = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 200)).astype(np.int32)).to(cuda)
+    batch = {"tokens": tok, "targets": tok}
+    hooks = _resolve_kernels(RunConfig(model=cfg, shape=REDUCED_SHAPE,
+                                       attention_impl="pallas"))
+    ops.reset_launches()
+    got, parts = forward_loss(params, cfg, batch,
+                              compute_dtype=torch.float32, **hooks)
+    assert {k: ops.LAUNCHES[k] for k in ("flash_attention", "moe_gmm",
+                                         "mamba_scan")} == \
+        {"flash_attention": 1, "moe_gmm": 12, "mamba_scan": 7}
+    want, wparts = forward_loss(params, cfg, batch,
+                                compute_dtype=torch.float32)
+    assert float(got) == pytest.approx(float(want), rel=1e-5)
+    assert float(parts["aux"]) == pytest.approx(float(wparts["aux"]),
+                                                rel=1e-5)
