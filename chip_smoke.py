@@ -62,7 +62,27 @@ Phases (any failure raises and exits non-zero with no result line):
  12. served  BatchServer(slots=4, max_len=128) on the jamba weights, f32,
              8 requests as in 8; the prefill-vs-decode check on a prompt
              whose MoE layers drop no token (drops counted, asserted 0);
- 13. report  a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+ 13. mlstm   the mlstm_chunk kernel against its plain version (the
+             sequential mLSTM) at xlstm-350m's shapes (B=2, H=4, S=4096,
+             dqk=dv=512 in the model layout, q/k/v bf16 with f32 gates;
+             B=1 all f32), the edge shapes of tests/test_kernels.py in f32
+             and bf16 and a dv that is not a multiple of the kernel's
+             tile: elementwise within 5e-4 (f32) / 5e-2 (bf16) absolute
+             plus relative, the per-call, device and plain version's times
+             (the plain loop over S timed over 3 calls) and the bound (no
+             library call computes it);
+ 14. xlstm   the jamba weights freed, xlstm-350m at full width and depth
+             (24 layers: 21 mLSTM + 3 sLSTM, 530.2 M f32 parameters, random
+             from the port's init_params): forward_loss at B=2, S=4096 in
+             bf16 and B=1, S=4096 in f32, through the kernel
+             (attention_impl="pallas": 21 mlstm_chunk launches) and through
+             the chunked reference path: finite loss within 2.0 of ln
+             50304, kernel vs reference within 1e-2 (bf16) / 1e-4 (f32)
+             relative; tokens/s, peak memory, a profiled bf16 forward on
+             each path;
+ 15. xserved BatchServer(slots=4, max_len=128) on the xlstm weights, f32,
+             8 requests as in 8, and the prefill-vs-decode check;
+ 16. report  a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
              ``{"ok": true, "device": {...}}``.
 
 Exits 2 without a card or without the repository's ``src/`` beside it.
@@ -97,6 +117,8 @@ GMM_SOURCE = "src/repro_torch/kernels/csrc/moe_gmm.cu"
 GMM_REPLACES = "src/repro/kernels/moe_gmm.py:39"
 SCAN_SOURCE = "src/repro_torch/kernels/csrc/mamba_scan.cu"
 SCAN_REPLACES = "src/repro/kernels/mamba_scan.py:51"
+MLSTM_SOURCE = "src/repro_torch/kernels/csrc/mlstm_chunk.cu"
+MLSTM_REPLACES = "src/repro/kernels/mlstm_chunk.py:74"
 INT_COUNTERS = ("preemptions", "jobs_finished", "nat_drops")
 REL = 1e-5
 
@@ -330,7 +352,8 @@ def drive(label, specs, seeds):
 
     expect = {"campaign_preempt": 2 * n_ticks, "campaign_match": n_ticks,
               "campaign_advance": n_ticks, "campaign_bill": n_ticks,
-              "flash_attention": 0, "moe_gmm": 0, "mamba_scan": 0}
+              "flash_attention": 0, "moe_gmm": 0, "mamba_scan": 0,
+              "mlstm_chunk": 0}
     if launches != expect:
         fail(f"{label}: launches {launches}, expected {expect}")
     if len(got.rows) != lanes:
@@ -920,6 +943,184 @@ def hybrid_forward_phase(params, cfg, dev) -> dict:
     return out
 
 
+# -- phase 13: mlstm_chunk against its plain version ------------------------
+
+MLSTM_TOL = {torch.float32: 5e-4, torch.bfloat16: 5e-2}
+# (label, layout, shape, stream dtypes q/k/v, gates or None for the
+# case's dtype in both): the model layout is (B, H, S, dqk, dv) through
+# mlstm_chunk_model, the kernel layout (BH, S, dqk, dv, block_s) through
+# mlstm_chunk
+MLSTM_CASES = [("xlstm-b2-model", "model", (2, 4, 4096, 512, 512), (BF, F32)),
+               ("xlstm-b1-f32", "model", (1, 4, 4096, 512, 512), (F32, F32)),
+               ("edge-2x128x32x32", "kernel", (2, 128, 32, 32, 64), None),
+               ("edge-4x256x64x64", "kernel", (4, 256, 64, 64, 128), None),
+               ("edge-1x128x16x48", "kernel", (1, 128, 16, 48, 32), None),
+               ("ragged-dv80", "kernel", (2, 256, 64, 80, 128), None)]
+
+
+def mlstm_flops(BH: int, S: int, dqk: int, dv: int, chunk: int) -> int:
+    """The products the function needs per chunk of L steps, 2 FLOP per
+    multiply-add: q k^T and the masked scores times v over the L(L+1)/2
+    causal pairs only; q C (L x dqk x dv) from the second chunk on (the
+    state starts at zero); the state update k^T v except after the last
+    chunk (no state is returned)."""
+    flops = 0
+    for t0 in range(0, S, chunk):
+        L = min(chunk, S - t0)
+        flops += L * (L + 1) * (dqk + dv)
+        flops += 2 * L * dqk * dv * ((t0 > 0) + (t0 + L < S))
+    return BH * flops
+
+
+def check_mlstm(dev) -> dict:
+    """Every case in its dtypes (the kernel-layout ones in f32 and bf16);
+    returns {(label, q dtype): numbers}."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(15)
+    cases = []
+    for label, layout, shape, dtypes in MLSTM_CASES:
+        for dt in ((dtypes,) if dtypes else ((F32, F32), (BF, BF))):
+            cases.append((label, layout, shape, dt))
+    out = {}
+    for label, layout, shape, (sdt, gdt) in cases:
+        if layout == "model":
+            B, H, S, dqk, dv = shape
+            lead, glead, BH, chunk = (B, S, H), (B, S, H), B * H, 128
+        else:
+            BH, S, dqk, dv, bs = shape
+            lead, glead, chunk = (BH, S), (BH, S, 1), min(bs, S, 128)
+        q, k = (torch.randn((*lead, dqk), generator=gen, device=dev)
+                .to(sdt) for _ in range(2))
+        v = torch.randn((*lead, dv), generator=gen, device=dev).to(sdt)
+        li = (torch.randn(glead, generator=gen, device=dev) - 5.0).to(gdt)
+        lf = torch.nn.functional.logsigmoid(
+            torch.randn(glead, generator=gen, device=dev) + 3.0).to(gdt)
+        if layout == "model":
+            def kern():
+                return ops.mlstm_chunk_model(q, k, v, li, lf)
+
+            def plain():
+                return ref.mlstm_model_ref(q, k, v, li, lf)
+        else:
+            def kern():
+                return ops.mlstm_chunk(q, k, v, li, lf, block_s=bs)
+
+            def plain():
+                return ref.mlstm_ref(q, k, v, li, lf)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        tol = MLSTM_TOL[sdt]
+        if not torch.isfinite(got.float()).all() or \
+                bool((diff > tol + tol * want.float().abs()).any()):
+            fail(f"mlstm {label} {sdt}: kernel differs from plain version "
+                 f"(max abs err {err}, tolerance {tol})")
+        del got, want
+        flops = mlstm_flops(BH, S, dqk, dv, chunk)
+        moved = nbytes(q, k, v, li, lf) + q.numel() // dqk * dv \
+            * q.element_size()
+        b, how = bound(moved, flops, BF16_FLOPS_PER_S if sdt == BF
+                       else FP32_FLOPS_PER_S)
+        big = S >= 4096
+        res = {"max_abs_err": err,
+               "ms": time_ms(kern, 5 if big else 50, 2 if big else 5),
+               "plain_ms": time_ms(plain, 3 if big else 5, 1),
+               "library_ms": None,
+               "device_ms": device_ms(kern, "mlstm_chunk_kernel",
+                                      calls=5 if big else 20),
+               "bound_ms": b, "bound_by": how}
+        out[(label, sdt)] = res
+        dev_ms = "not measured" if res["device_ms"] is None \
+            else f"{res['device_ms']:.4f} ms"
+        log(f"[mlstm] {label} {layout} {shape} {str(sdt)[6:]}/gates "
+            f"{str(gdt)[6:]}: max abs err {err:.3g} (tol {tol}); kernel "
+            f"{res['ms']:.4f} ms (device {dev_ms}), plain "
+            f"{res['plain_ms']:.4f} ms; bound {b:.4f} ms by {how} "
+            f"({flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB); kernel at "
+            f"{flops / res['ms'] / 1e9:.2f} TFLOP/s")
+        del q, k, v, li, lf
+        torch.cuda.empty_cache()
+    return out
+
+
+# -- phases 14 and 15: the xlstm-350m model path ----------------------------
+
+def xlstm_forward_phase(params, cfg, dev) -> dict:
+    """forward_loss at full width and depth through the mlstm_chunk
+    kernel (the resolver's hooks for attention_impl="pallas") and the
+    chunked reference path, in bf16 (B=2) and f32 (B=1)."""
+    from repro_torch.configs import REDUCED_SHAPE, RunConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import _resolve_kernels
+    from repro_torch.models import forward_loss
+
+    hooks = _resolve_kernels(RunConfig(model=cfg, shape=REDUCED_SHAPE,
+                                       attention_impl="pallas"))
+    if hooks["chunk_fn"] is not ops.mlstm_chunk_model:
+        fail(f"xlstm: attention_impl='pallas' resolves to {hooks}")
+    layers = cfg.block_defs * cfg.n_super
+    n_mlstm = sum(m == "mlstm" for m, _ in layers)
+    ln_v = math.log(cfg.vocab_size)
+    rng = np.random.default_rng(2021)
+    out = {}
+    for dtype, B, rel in ((torch.bfloat16, 2, 1e-2), (torch.float32, 1, 1e-4)):
+        S = 4096
+        tok = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+        batch = {"tokens": torch.from_numpy(tok[:, :-1]).to(dev),
+                 "targets": torch.from_numpy(tok[:, 1:]).to(dev)}
+        losses, secs = {}, {}
+        for label, kw in (("kernel", hooks), ("reference", {})):
+            forward_loss(params, cfg, batch, compute_dtype=dtype, **kw)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            loss, _ = forward_loss(params, cfg, batch, compute_dtype=dtype,
+                                   **kw)
+            torch.cuda.synchronize()
+            secs[label] = time.perf_counter() - t0
+            launches = dict(ops.LAUNCHES)
+            want = {name: 0 for name in launches}
+            if label == "kernel":
+                want["mlstm_chunk"] = n_mlstm
+            if launches != want:
+                fail(f"xlstm {label} {dtype}: launches {launches}, "
+                     f"expected {want}")
+            losses[label] = float(loss)
+            if not math.isfinite(losses[label]) or \
+                    abs(losses[label] - ln_v) > 2.0:
+                fail(f"xlstm {label} {dtype}: loss {losses[label]} not "
+                     f"within 2.0 of ln {cfg.vocab_size} = {ln_v:.4f}")
+            log(f"[xlstm] {cfg.name} {len(layers)}L {str(dtype)[6:]} B={B} "
+                f"S={S} via {label}: loss {losses[label]:.6f}, "
+                f"{secs[label]:.3f} s ({B * S / secs[label]:.1f} tokens/s), "
+                f"mlstm_chunk launches {launches['mlstm_chunk']}, peak "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+            if dtype != torch.bfloat16:
+                continue
+            prof = profile_forward(
+                lambda: forward_loss(params, cfg, batch,
+                                     compute_dtype=dtype, **kw),
+                secs[label], tag=f"xlstm {label}",
+                kernels=("mlstm_chunk_kernel",))
+            if label == "kernel":
+                out["launches"] = launches["mlstm_chunk"]
+                out["device_ms"] = prof["mlstm_chunk_kernel"]
+        d = abs(losses["kernel"] - losses["reference"]) \
+            / abs(losses["reference"])
+        if d > rel:
+            fail(f"xlstm {dtype}: kernel loss {losses['kernel']} vs "
+                 f"reference {losses['reference']} ({d:.3g} relative > "
+                 f"{rel})")
+        log(f"[xlstm] {str(dtype)[6:]}: kernel vs reference loss {d:.3g} "
+            f"relative (tol {rel})")
+        out[str(dtype)] = {"losses": losses, "secs": secs, "rel": d}
+        del batch
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to PyTorch",
@@ -938,7 +1139,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi()
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     build.library()
     log(f"[build] {time.perf_counter() - t0:.2f} s including nvcc "
         f"({build.last_build_seconds} s; None: cached) in {build.build_dir()}")
@@ -962,10 +1163,12 @@ def main() -> int:
     dp_spec = CampaignSpec.from_json(
         (ROOT / "tests" / "data" / "dataplane.spec.json").read_text())
     drive("dataplane", [dp_spec], list(range(64)))
+    log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
 
     flash = check_flash(dev)
     gmm = check_gmm(dev)
     scan = check_scan(dev)
+    log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
 
     from repro_torch.configs import get_config
     from repro_torch.models import init_params, param_count
@@ -978,6 +1181,7 @@ def main() -> int:
         f"the card in {time.perf_counter() - t0:.2f} s")
     fwd = forward_phase(params, cfg, dev)
     serve_phase(params, cfg, dev)
+    log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
     del params                         # jamba's 53.2 GB need the room
     torch.cuda.empty_cache()
 
@@ -992,6 +1196,22 @@ def main() -> int:
         f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB allocated")
     hybrid = hybrid_forward_phase(params, cfg, dev)
     serve_phase(params, cfg, dev, tag="served")
+    del params                         # the card to itself for xlstm
+    torch.cuda.empty_cache()
+    log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
+
+    mlstm = check_mlstm(dev)
+    cfg = get_config("xlstm-350m")
+    t0 = time.perf_counter()
+    params = init_params(cfg, 2021, device=dev)
+    torch.cuda.synchronize()
+    log(f"[model] {cfg.name}: {param_count(params) / 1e6:.2f} M f32 "
+        f"parameters ({cfg.num_layers} layers: {cfg.n_super} super-blocks "
+        f"of 7 mLSTM + 1 sLSTM; d_model {cfg.d_model}, {cfg.num_heads} "
+        f"heads) initialised on the card in {time.perf_counter() - t0:.2f} s")
+    xlstm = xlstm_forward_phase(params, cfg, dev)
+    serve_phase(params, cfg, dev, tag="xserved")
+    log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
 
     yi = flash[("yi-9b", torch.bfloat16)]
     if yi["device_ms"] is None:          # the forward's own profile
@@ -1003,6 +1223,9 @@ def main() -> int:
                       (main_scan, "mamba_scan_kernel")):
         if res["device_ms"] is None:
             res["device_ms"] = hybrid["device_ms"][name]
+    main_mlstm = mlstm[("xlstm-b2-model", torch.bfloat16)]
+    if main_mlstm["device_ms"] is None:
+        main_mlstm["device_ms"] = xlstm["device_ms"]
     keys = ("max_abs_err", "ms", "plain_ms", "device_ms", "bound_ms",
             "bound_by", "library_ms")
     report = {"kernels": [
@@ -1020,7 +1243,10 @@ def main() -> int:
         {"name": "mamba_scan", "route": "cuda", "source": SCAN_SOURCE,
          "replaces": SCAN_REPLACES,
          "launches": hybrid["launches"]["mamba_scan"],
-         **{key: main_scan[key] for key in keys}}]}
+         **{key: main_scan[key] for key in keys}},
+        {"name": "mlstm_chunk", "route": "cuda", "source": MLSTM_SOURCE,
+         "replaces": MLSTM_REPLACES, "launches": xlstm["launches"],
+         **{key: main_mlstm[key] for key in keys}}]}
     print(json.dumps(report))
     print(smi)
     print(json.dumps({"ok": True, "device": {

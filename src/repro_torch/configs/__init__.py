@@ -1,9 +1,9 @@
 """Architecture registry of the port: ``get_config`` / ``get_reduced``.
 
-The registry holds only the architectures the port runs (yi-9b and
-jamba-v0.1-52b so far); ``get_reduced`` shrinks a config exactly as the
-JAX package's ``configs.get_reduced`` does, so the two packages build
-the same reduced model for the parity tests.
+The registry holds only the architectures the port runs (yi-9b,
+jamba-v0.1-52b and xlstm-350m so far); ``get_reduced`` shrinks a config
+exactly as the JAX package's ``configs.get_reduced`` does, so the two
+packages build the same reduced model for the parity tests.
 """
 from __future__ import annotations
 
@@ -13,9 +13,10 @@ from repro_torch.configs.base import (BlockDef, EncoderConfig,  # noqa: F401
                                       FrontendConfig, MLAConfig, MambaConfig,
                                       MoEConfig, ModelConfig, RunConfig,
                                       SHAPES, ShapeConfig, XLSTMConfig)
-from repro_torch.configs import jamba_v01_52b, yi_9b
+from repro_torch.configs import jamba_v01_52b, xlstm_350m, yi_9b
 
-ARCHS = {m.CONFIG.name: m.CONFIG for m in (yi_9b, jamba_v01_52b)}
+ARCHS = {m.CONFIG.name: m.CONFIG
+         for m in (yi_9b, jamba_v01_52b, xlstm_350m)}
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -32,7 +32,8 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "build_dir", "library",
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (_CSRC / "campaign_sweep.cu", _CSRC / "flash_attention.cu",
-           _CSRC / "moe_gmm.cu", _CSRC / "mamba_scan.cu")
+           _CSRC / "moe_gmm.cu", _CSRC / "mamba_scan.cu",
+           _CSRC / "mlstm_chunk.cu")
 # IEEE division and square root, no fast math: the allocator's floors
 # depend on every f32 operation rounding on its own
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -116,8 +117,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.moe_gmm.argtypes = [p, p, p, *[i] * 6, p]
     # xc, dt, bm, cm, a, y, types, B, S, di, N, stream
     lib.mamba_scan.argtypes = [p, p, p, p, p, p, *[i] * 5, p]
+    # q, k, v, logi, logf, o, strides, types, B, H, S, dqk, dv, chunk,
+    # scale, stream
+    lib.mlstm_chunk.argtypes = [p, p, p, p, p, p, p, *[i] * 7,
+                                ctypes.c_float, p]
     for fn in (lib.campaign_alloc, lib.campaign_advance, lib.campaign_bill,
-               lib.flash_attention, lib.moe_gmm, lib.mamba_scan):
+               lib.flash_attention, lib.moe_gmm, lib.mamba_scan,
+               lib.mlstm_chunk):
         fn.restype = ctypes.c_int
     return lib
 

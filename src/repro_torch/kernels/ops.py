@@ -19,6 +19,8 @@ run can show that its main path went through the kernels.
   (and flash_attention_kernel, its kernel-level entry point)
   moe_gmm             moe_gmm           kernels/moe_gmm.py:39
   mamba_scan          mamba_scan        kernels/mamba_scan.py:51
+  mlstm_chunk         mlstm_chunk       kernels/mlstm_chunk.py:74
+  (and mlstm_chunk_model, its model-layout entry point)
 """
 from __future__ import annotations
 
@@ -32,12 +34,12 @@ from repro_torch.kernels import ref
 __all__ = ["LAUNCHES", "reset_launches", "campaign_preempt",
            "campaign_match", "campaign_advance", "campaign_bill",
            "flash_attention", "flash_attention_kernel", "moe_gmm",
-           "mamba_scan"]
+           "mamba_scan", "mlstm_chunk", "mlstm_chunk_model"]
 
 LAUNCHES: Dict[str, int] = {"campaign_preempt": 0, "campaign_match": 0,
                             "campaign_advance": 0, "campaign_bill": 0,
                             "flash_attention": 0, "moe_gmm": 0,
-                            "mamba_scan": 0}
+                            "mamba_scan": 0, "mlstm_chunk": 0}
 
 
 def reset_launches() -> None:
@@ -252,7 +254,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
 # -- MoE grouped product and Mamba selective scan ----------------------------
 
 def _check_stream(op: str, name: str, t: torch.Tensor, rank: int,
-                  device: torch.device) -> None:
+                  device: torch.device, contiguous: bool = True) -> None:
     if t.dtype not in _FLOAT_DTYPES:
         raise TypeError(f"{op}: {name} must be float32 or bfloat16, got "
                         f"{t.dtype}")
@@ -261,7 +263,7 @@ def _check_stream(op: str, name: str, t: torch.Tensor, rank: int,
                          f"{tuple(t.shape)}")
     if t.device != device:
         raise ValueError(f"{op}: {name} on {t.device}, expected {device}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{op}: {name} must be contiguous")
 
 
@@ -328,3 +330,97 @@ def mamba_scan(xc: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
         a.data_ptr(), y.data_ptr(), types, B, S, di, N, _stream(xc)), op)
     LAUNCHES[op] += 1
     return y
+
+
+# -- mLSTM chunkwise recurrence ----------------------------------------------
+
+_MAX_DQK = 512           # the kernel keeps C[:, 32 columns] in shared memory
+_MAX_CHUNK = 128         # rows of the kernel's intra-chunk product
+
+
+def _check_mlstm(op: str, q, k, v, logi, logf, rank: int) -> None:
+    """q/k (..., S, dqk) and v (..., S, dv) with equal leading dims,
+    gates one value a row; every stream f32 or bf16 on q's device.  The
+    kernel reads rows through strides, so nothing need be contiguous."""
+    for name, t, r in (("q", q, rank), ("k", k, rank), ("v", v, rank),
+                       ("logi", logi, 3), ("logf", logf, 3)):
+        _check_stream(op, name, t, r, q.device, contiguous=False)
+    lead = tuple(q.shape[:-1])
+    gate = lead if rank == 4 else lead + (1,)
+    if tuple(k.shape) != tuple(q.shape) or tuple(v.shape[:-1]) != lead or \
+            tuple(logi.shape) != gate or tuple(logf.shape) != gate:
+        raise ValueError(f"{op}: shapes q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)} logi "
+                         f"{tuple(logi.shape)} logf {tuple(logf.shape)}")
+    if q.shape[-1] < 1 or v.shape[-1] < 1:
+        raise ValueError(f"{op}: empty head dims {q.shape[-1]} / "
+                         f"{v.shape[-1]}")
+
+
+def _launch_mlstm(q, k, v, logi, logf, o, strides, B, H, S, chunk) -> None:
+    op = "mlstm_chunk"
+    dqk, dv = q.shape[-1], v.shape[-1]
+    if dqk > _MAX_DQK:
+        raise ValueError(f"{op}: dqk {dqk}; the kernel takes up to "
+                         f"{_MAX_DQK}")
+    if B * H > 65535:
+        raise ValueError(f"{op}: {B * H} (batch, head) rows exceed the grid")
+    from repro_torch.kernels.build import library
+    st = (ctypes.c_longlong * 18)(*strides)
+    types = sum(_is_bf16(t) << i for i, t in enumerate((q, k, v, logi, logf)))
+    _raise_on(library().mlstm_chunk(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), logi.data_ptr(),
+        logf.data_ptr(), o.data_ptr(), st, types, B, H, S, dqk, dv, chunk,
+        dqk ** -0.5, _stream(q)), op)
+    LAUNCHES[op] += 1
+
+
+def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                logi: torch.Tensor, logf: torch.Tensor, *,
+                block_s: int = 128) -> torch.Tensor:
+    """The JAX package's signature: q/k (BH,S,dqk), v (BH,S,dv),
+    logi/logf (BH,S,1) -> h (BH,S,dv) in q's dtype, the stabilized mLSTM
+    from a zero state.  S must be a multiple of min(block_s, S), as the
+    JAX wrapper asserts; the kernel runs chunks of min(block_s, S, 128)
+    steps (the chunk size changes only the rounding)."""
+    op = "mlstm_chunk"
+    _check_mlstm(op, q, k, v, logi, logf, 3)
+    BH, S, _ = q.shape
+    if block_s < 1 or S < 1:
+        raise ValueError(f"{op}: block_s {block_s}, S {S}")
+    bs = min(block_s, S)
+    if S % bs:
+        raise ValueError(f"{op}: S={S} is not a multiple of the chunk {bs}: "
+                         "pad the sequence to a chunk multiple upstream")
+    if not _on_card(q, op):
+        return ref.mlstm_ref(q, k, v, logi, logf)
+    q, k, v = _rows(q), _rows(k), _rows(v)
+    o = torch.empty((BH, S, v.shape[2]), dtype=q.dtype, device=q.device)
+    # (batch = BH, head = 1, step) strides
+    strides = [x for t in (q, k, v, logi, logf, o)
+               for x in (t.stride(0), 0, t.stride(1))]
+    _launch_mlstm(q, k, v, logi, logf, o, strides, BH, 1, S,
+                  min(bs, _MAX_CHUNK))
+    return o
+
+
+def mlstm_chunk_model(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      logi: torch.Tensor, logf: torch.Tensor) -> torch.Tensor:
+    """Model layout (the mLSTM's ``chunk_fn``): q/k (B,S,H,dqk), v
+    (B,S,H,dv), logi/logf (B,S,H) -> h (B,S,H,dv) in q's dtype, from a
+    zero state, for any S (the kernel masks a ragged last chunk).  The
+    kernel reads the layout through strides: the model's transposed
+    views go in without a copy."""
+    op = "mlstm_chunk"
+    _check_mlstm(op, q, k, v, logi, logf, 4)
+    B, S, H, _ = q.shape
+    if S < 1:
+        raise ValueError(f"{op}: empty sequence")
+    if not _on_card(q, op):
+        return ref.mlstm_model_ref(q, k, v, logi, logf)
+    q, k, v = _rows(q), _rows(k), _rows(v)
+    o = torch.empty((B, S, H, v.shape[3]), dtype=q.dtype, device=q.device)
+    strides = [x for t in (q, k, v, logi, logf, o)
+               for x in (t.stride(0), t.stride(2), t.stride(1))]
+    _launch_mlstm(q, k, v, logi, logf, o, strides, B, H, S, _MAX_CHUNK)
+    return o

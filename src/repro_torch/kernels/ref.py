@@ -3,9 +3,9 @@
 ``flash_attention_ref`` is the plain version of csrc/flash_attention.cu
 and the port of the JAX package's ``kernels/ref.py`` oracle of the same
 name: f32 throughout, masked scores -1e30, output in q's dtype.
-``moe_gmm_ref`` (csrc/moe_gmm.cu) and ``mamba_scan_ref``
-(csrc/mamba_scan.cu) port the oracles of the same names: f32 math,
-output in the first input's dtype.
+``moe_gmm_ref`` (csrc/moe_gmm.cu), ``mamba_scan_ref``
+(csrc/mamba_scan.cu) and ``mlstm_ref`` (csrc/mlstm_chunk.cu) port the
+oracles of the same names: f32 math, output in the first input's dtype.
 
 The campaign sweep's per-tick ops follow.
 
@@ -32,7 +32,8 @@ import numpy as np
 import torch
 
 __all__ = ["flash_attention_ref", "flash_attention_model_ref",
-           "moe_gmm_ref", "mamba_scan_ref",
+           "moe_gmm_ref", "mamba_scan_ref", "mlstm_ref",
+           "mlstm_model_ref",
            "campaign_alloc_ref", "campaign_preempt_ref",
            "campaign_match_ref", "campaign_advance_ref",
            "campaign_bill_ref"]
@@ -100,6 +101,51 @@ def mamba_scan_ref(xc: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
         h = a_bar * h + (df[:, t] * xf[:, t])[:, :, None] * bf[:, t, None, :]
         ys.append((h * cf[:, t, None, :]).sum(-1))             # (B,di)
     return torch.stack(ys, dim=1).to(xc.dtype)
+
+
+def mlstm_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              logi: torch.Tensor, logf: torch.Tensor) -> torch.Tensor:
+    """Exact stabilized sequential mLSTM from a zero state (C, n and m
+    all 0): q/k (BH,S,dqk), v (BH,S,dv), logi/logf (BH,S,1) -> h
+    (BH,S,dv) in q's dtype.  A loop over S in f32, k scaled by
+    dqk**-0.5."""
+    BH, S, dqk = q.shape
+    dv = v.shape[2]
+    f32 = torch.float32
+    qf, vf = q.to(f32), v.to(f32)
+    kf = k.to(f32) * (dqk ** -0.5)
+    li, lf = logi[..., 0].to(f32), logf[..., 0].to(f32)
+    C = torch.zeros((BH, dqk, dv), dtype=f32, device=q.device)
+    n = torch.zeros((BH, dqk), dtype=f32, device=q.device)
+    m = torch.zeros(BH, dtype=f32, device=q.device)
+    hs = []
+    for t in range(S):
+        q_t, k_t, v_t = qf[:, t], kf[:, t], vf[:, t]
+        m1 = torch.maximum(lf[:, t] + m, li[:, t])              # (BH,)
+        fp = torch.exp(lf[:, t] + m - m1)
+        ip = torch.exp(li[:, t] - m1)
+        C = fp[:, None, None] * C + ip[:, None, None] * \
+            torch.einsum("bd,be->bde", k_t, v_t)
+        n = fp[:, None] * n + ip[:, None] * k_t
+        num = torch.einsum("bd,bde->be", q_t, C)
+        den = torch.maximum((n * q_t).sum(-1).abs(), torch.exp(-m1))
+        hs.append(num / den[:, None])
+        m = m1
+    return torch.stack(hs, dim=1).to(q.dtype)
+
+
+def mlstm_model_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    logi: torch.Tensor, logf: torch.Tensor) -> torch.Tensor:
+    """``mlstm_ref`` in the model layout: q/k (B,S,H,dqk), v (B,S,H,dv),
+    logi/logf (B,S,H) -> h (B,S,H,dv) in q's dtype."""
+    B, S, H, dqk = q.shape
+    dv = v.shape[3]
+
+    def rows(t, d):
+        return t.transpose(1, 2).reshape(B * H, S, d)
+    h = mlstm_ref(rows(q, dqk), rows(k, dqk), rows(v, dv),
+                  rows(logi[..., None], 1), rows(logf[..., None], 1))
+    return h.reshape(B, H, S, dv).transpose(1, 2)
 
 
 # -- campaign-sweep tick ops -----------------------------------------------

@@ -20,18 +20,20 @@ def _dtype(run: RunConfig) -> torch.dtype:
 
 def _resolve_kernels(run: RunConfig) -> dict:
     """The forward's kernel hooks for ``run``: with ``attention_impl ==
-    "pallas"``, ``flash_fn`` / ``gmm_fn`` / ``scan_fn`` are the flash
-    attention, ``moe_gmm`` and ``mamba_scan`` wrappers; otherwise all
-    three are None and the forward computes exactly the JAX package's
-    reference path (chunked attention, einsum experts, chunked scan).
+    "pallas"``, ``flash_fn`` / ``gmm_fn`` / ``scan_fn`` / ``chunk_fn``
+    are the flash attention, ``moe_gmm``, ``mamba_scan`` and
+    ``mlstm_chunk_model`` wrappers; otherwise all four are None and the
+    forward computes exactly the JAX package's reference path (chunked
+    attention, einsum experts, chunked scan, chunked mLSTM).
     Both settings compute the same function within the kernels'
     tolerances, so the switch adds no behaviour the JAX package lacks;
     it takes no new ``RunConfig`` field."""
     if run.attention_impl != "pallas":
-        return {"flash_fn": None, "gmm_fn": None, "scan_fn": None}
+        return {"flash_fn": None, "gmm_fn": None, "scan_fn": None,
+                "chunk_fn": None}
     from repro_torch.kernels import ops as kops
     return {"flash_fn": kops.flash_attention, "gmm_fn": kops.moe_gmm,
-            "scan_fn": kops.mamba_scan}
+            "scan_fn": kops.mamba_scan, "chunk_fn": kops.mlstm_chunk_model}
 
 
 def make_prefill_step(cfg: ModelConfig, run: RunConfig):

@@ -61,19 +61,21 @@ def _assemble_inputs(p, cfg, batch, dtype):
 
 
 def forward_loss(p, cfg: ModelConfig, batch, *, compute_dtype=torch.bfloat16,
-                 run_cfg=None, flash_fn=None, gmm_fn=None, scan_fn=None):
+                 run_cfg=None, flash_fn=None, gmm_fn=None, scan_fn=None,
+                 chunk_fn=None):
     """Training forward without the gradient: mean CE loss + the MoE aux
     loss (zero for models without MoE).  targets == -1 are masked.  The
     kernels come in only through the hooks: ``flash_fn`` (attention),
-    ``gmm_fn`` (the MoE experts' grouped products) and ``scan_fn`` (the
-    Mamba selective scan); ``launch.steps._resolve_kernels`` gives all
-    three for ``attention_impl="pallas"``."""
+    ``gmm_fn`` (the MoE experts' grouped products), ``scan_fn`` (the
+    Mamba selective scan) and ``chunk_fn`` (the mLSTM's chunkwise
+    recurrence); ``launch.steps._resolve_kernels`` gives all four for
+    ``attention_impl="pallas"``."""
     q_chunk = getattr(run_cfg, "attention_q_chunk", 1024) if run_cfg else 1024
     x, positions = _assemble_inputs(p, cfg, batch, compute_dtype)
     x, _, aux = tf.apply_stack(p["stack"], x, cfg, positions=positions,
                                causal=True, q_chunk=q_chunk,
                                flash_fn=flash_fn, gmm_fn=gmm_fn,
-                               scan_fn=scan_fn)
+                               scan_fn=scan_fn, chunk_fn=chunk_fn)
     x = apply_norm(p["final_norm"], x, cfg.norm_type)
     logits = apply_lm_head(p["lm_head"], x, cfg.vocab_size)
     loss = cross_entropy_loss(logits, batch["targets"], cfg.vocab_size)
@@ -89,7 +91,10 @@ def init_cache(cfg: ModelConfig, batch, max_len, dtype=torch.bfloat16,
     """Zeroed decode state, one ``{"b<i>": ...}`` per super-block: a KV
     cache ``{"k","v"}`` (batch, max_len, Hkv, head_dim) per attention
     sub-block, a Mamba state ``{"h"}`` (batch, d_inner, d_state) f32 and
-    ``{"conv"}`` (batch, d_conv - 1, d_inner) per Mamba sub-block."""
+    ``{"conv"}`` (batch, d_conv - 1, d_inner) per Mamba sub-block, an
+    mLSTM state ``{"C","n","m"}`` f32 and ``{"conv"}`` per mLSTM
+    sub-block, an sLSTM state ``{"c","n","h","m"}`` (batch, H, d_model /
+    H) f32 and ``{"conv"}`` per sLSTM sub-block."""
     _check_lm(cfg)
     return tf.init_stack_state(cfg, batch, max_len, dtype,
                                resolve_device(device))
@@ -98,9 +103,9 @@ def init_cache(cfg: ModelConfig, batch, max_len, dtype=torch.bfloat16,
 def prefill(p, cfg: ModelConfig, batch, *, compute_dtype=torch.bfloat16,
             q_chunk=1024):
     """Full-sequence prefill on the reference path (chunked attention,
-    chunked Mamba scan, einsum experts); returns (last-token logits,
-    caches): KV caches seq-aligned with the prompt, Mamba states
-    ``(h_last, conv_last)`` after the prompt."""
+    chunked Mamba scan, einsum experts, chunked mLSTM); returns
+    (last-token logits, caches): KV caches seq-aligned with the prompt,
+    Mamba and xLSTM states after the prompt."""
     x, positions = _assemble_inputs(p, cfg, batch, compute_dtype)
     x, caches, _ = tf.apply_stack(p["stack"], x, cfg, positions=positions,
                                   causal=True, q_chunk=q_chunk,
@@ -114,7 +119,7 @@ def decode_step(p, cfg: ModelConfig, caches, token, pos, *,
                 compute_dtype=torch.bfloat16):
     """One decode step.  token: (B,1) integer tensor; pos: int (write
     index).  Returns (logits (B,1,V), caches); the KV caches are written
-    in place, the Mamba states come back new."""
+    in place, the Mamba and xLSTM states come back new."""
     _check_lm(cfg)
     x = apply_embed(p["embed"], token, compute_dtype)
     x, new_caches = tf.decode_stack(p["stack"], x, caches, cfg, pos=int(pos))

@@ -1,16 +1,17 @@
 """Block / super-block assembly and the layer stack.
 
 The port of the JAX package's ``models/transformer.py`` for the mixers
-"attn" (GQA self-attention) and "mamba", and the FFNs "dense", "moe"
-and "none": each sub-block is a pre-norm mixer, then a pre-norm FFN.
-The JAX package stacks each leaf on a leading ``n_super`` axis and scans
-it; here the stack is a list with one dict per super-block (same keys,
-``{"b0": ..., "b7": ...}``), walked by a Python loop.  Nothing here
-takes a gradient, so there is no rematerialization.  The kernels come
-in through hooks: ``flash_fn`` (attention), ``gmm_fn`` (MoE experts)
-and ``scan_fn`` (Mamba).  Every other branch of the JAX package raises,
-naming the ROADMAP item that ports it (encoder-decoder inputs raise in
-``models/model.py``).
+"attn" (GQA self-attention), "mamba", "mlstm" and "slstm", and the FFNs
+"dense", "moe" and "none": each sub-block is a pre-norm mixer, then a
+pre-norm FFN.  The JAX package stacks each leaf on a leading
+``n_super`` axis and scans it; here the stack is a list with one dict
+per super-block (same keys, ``{"b0": ..., "b7": ...}``), walked by a
+Python loop.  Nothing here takes a gradient, so there is no
+rematerialization.  The kernels come in through hooks: ``flash_fn``
+(attention), ``gmm_fn`` (MoE experts), ``scan_fn`` (Mamba) and
+``chunk_fn`` (the mLSTM).  Every other branch of the JAX package
+raises, naming the ROADMAP item that ports it (encoder-decoder inputs
+raise in ``models/model.py``).
 """
 from __future__ import annotations
 
@@ -19,11 +20,13 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import apply_ffn, apply_norm, init_ffn, init_norm
 
 # the ROADMAP item that ports each part the JAX package has beyond GQA
-# attention, Mamba, and dense / MoE FFNs
-_NOT_PORTED = {"mla": "A9", "qk_norm": "A8", "mlstm": "A11", "slstm": "A11"}
+# attention, Mamba, the xLSTM mixers, and dense / MoE FFNs
+_NOT_PORTED = {"mla": "A9", "qk_norm": "A8"}
+_MIXERS = ("attn", "mamba", "mlstm", "slstm")
 
 
 def _check_supported(cfg, mixer, ffn):
@@ -35,7 +38,7 @@ def _check_supported(cfg, mixer, ffn):
             raise NotImplementedError(
                 f"{cfg.name}: {part!r} is not ported yet: ROADMAP "
                 f"{_NOT_PORTED[part]}")
-    if mixer not in ("attn", "mamba") or ffn not in ("dense", "moe", "none"):
+    if mixer not in _MIXERS or ffn not in ("dense", "moe", "none"):
         raise ValueError((mixer, ffn))
 
 
@@ -50,8 +53,14 @@ def init_subblock(gen, cfg, mixer, ffn, device):
         p["mixer"] = attn.init_attention(
             gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
             device)
-    else:
+    elif mixer == "mamba":
         p["mixer"] = mb.init_mamba(gen, cfg.d_model, cfg.mamba, device)
+    elif mixer == "mlstm":
+        p["mixer"] = xl.init_mlstm(gen, cfg.d_model, cfg.num_heads,
+                                   cfg.xlstm, device)
+    else:
+        p["mixer"] = xl.init_slstm(gen, cfg.d_model, cfg.num_heads,
+                                   cfg.xlstm, device)
     if ffn == "dense":
         p["norm2"] = init_norm(cfg.d_model, device, cfg.norm_type)
         p["ffn"] = init_ffn(gen, cfg.d_model, cfg.d_ff, device, cfg.ffn_type)
@@ -63,7 +72,7 @@ def init_subblock(gen, cfg, mixer, ffn, device):
 
 
 def apply_subblock(p, x, cfg, mixer, ffn, *, positions, causal, q_chunk,
-                   flash_fn=None, gmm_fn=None, scan_fn=None):
+                   flash_fn=None, gmm_fn=None, scan_fn=None, chunk_fn=None):
     """Full-sequence apply.  Returns (x, cache_seed, aux)."""
     _check_supported(cfg, mixer, ffn)
     h = apply_norm(p["norm1"], x, cfg.norm_type)
@@ -73,10 +82,15 @@ def apply_subblock(p, x, cfg, mixer, ffn, *, positions, causal, q_chunk,
             rope_theta=cfg.rope_theta, use_rope=(cfg.pos_embedding == "rope"),
             q_chunk=q_chunk, flash_fn=flash_fn)
         seed = {"k": k, "v": v}
-    else:
+    elif mixer == "mamba":
         y, (h_last, conv_last) = mb.mamba_forward(p["mixer"], h, cfg.mamba,
                                                   scan_fn=scan_fn)
         seed = {"h": h_last, "conv": conv_last}
+    elif mixer == "mlstm":
+        y, seed = xl.mlstm_forward(p["mixer"], h, cfg.num_heads, cfg.xlstm,
+                                   chunk_fn=chunk_fn)
+    else:
+        y, seed = xl.slstm_forward(p["mixer"], h, cfg.num_heads, cfg.xlstm)
     x = x + y
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -93,15 +107,21 @@ def apply_subblock(p, x, cfg, mixer, ffn, *, positions, causal, q_chunk,
 
 def apply_subblock_decode(p, x, state, cfg, mixer, ffn, *, pos):
     """One-token apply.  Returns (x, new_state); a KV cache in ``state``
-    is written in place, a Mamba state is replaced."""
+    is written in place, a Mamba or xLSTM state is replaced."""
     _check_supported(cfg, mixer, ffn)
     h = apply_norm(p["norm1"], x, cfg.norm_type)
     if mixer == "attn":
         y, new_state = attn.attention_decode(
             p["mixer"], h, state, pos=pos, rope_theta=cfg.rope_theta,
             use_rope=(cfg.pos_embedding == "rope"))
-    else:
+    elif mixer == "mamba":
         y, new_state = mb.mamba_decode(p["mixer"], h, state, cfg.mamba)
+    elif mixer == "mlstm":
+        y, new_state = xl.mlstm_decode(p["mixer"], h, state, cfg.num_heads,
+                                       cfg.xlstm)
+    else:
+        y, new_state = xl.slstm_decode(p["mixer"], h, state, cfg.num_heads,
+                                       cfg.xlstm)
     x = x + y
     if ffn == "dense":
         x = x + apply_ffn(p["ffn"], apply_norm(p["norm2"], x, cfg.norm_type),
@@ -120,7 +140,11 @@ def init_subblock_state(cfg, idx_def, batch, max_len, dtype, device):
     if mixer == "attn":
         return attn.init_kv_cache(batch, max_len, cfg.num_kv_heads,
                                   cfg.head_dim, dtype, device)
-    return mb.init_mamba_state(batch, cfg.d_model, cfg.mamba, dtype, device)
+    if mixer == "mamba":
+        return mb.init_mamba_state(batch, cfg.d_model, cfg.mamba, dtype,
+                                   device)
+    init = xl.init_mlstm_state if mixer == "mlstm" else xl.init_slstm_state
+    return init(batch, cfg.d_model, cfg.num_heads, cfg.xlstm, dtype, device)
 
 
 # --------------------------------------------------------------------------
@@ -135,14 +159,16 @@ def init_stack(gen, cfg, device):
 
 def apply_stack(stack_params, x, cfg, *, positions, causal=True, q_chunk=1024,
                 collect_cache=False, flash_fn=None, gmm_fn=None,
-                scan_fn=None):
+                scan_fn=None, chunk_fn=None):
     """Run the super-blocks over x.  Returns (x, caches|None, aux): caches
     are one ``{"b<i>": seed}`` per super-block (``{"k","v"}`` for
-    attention, ``{"h","conv"}`` for Mamba), aux is the sum of the MoE
-    layers' aux losses."""
-    if collect_cache and scan_fn is not None:
-        raise ValueError("apply_stack: the scan kernel returns no Mamba "
-                         "state, so a cache is collected without scan_fn")
+    attention, ``{"h","conv"}`` for Mamba, ``{"C","n","m","conv"}`` for
+    the mLSTM, ``{"c","n","h","m","conv"}`` for the sLSTM), aux is the
+    sum of the MoE layers' aux losses."""
+    for fn, what in ((scan_fn, "Mamba"), (chunk_fn, "mLSTM")):
+        if collect_cache and fn is not None:
+            raise ValueError(f"apply_stack: a kernel hook returns no {what} "
+                             "state, so a cache is collected without it")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
     for layer_p in stack_params:
@@ -151,7 +177,7 @@ def apply_stack(stack_params, x, cfg, *, positions, causal=True, q_chunk=1024,
             x, seeds[f"b{i}"], a = apply_subblock(
                 layer_p[f"b{i}"], x, cfg, m, f, positions=positions,
                 causal=causal, q_chunk=q_chunk, flash_fn=flash_fn,
-                gmm_fn=gmm_fn, scan_fn=scan_fn)
+                gmm_fn=gmm_fn, scan_fn=scan_fn, chunk_fn=chunk_fn)
             aux = aux + a
         if collect_cache:
             caches.append(seeds)

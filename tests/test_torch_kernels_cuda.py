@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain versions, on the card:
-the campaign tick kernels, the flash attention kernel, and the MoE
-grouped product and Mamba selective scan.
+the campaign tick kernels, the flash attention kernel, the MoE grouped
+product, the Mamba selective scan and the chunkwise mLSTM.
 
 Every test here carries the ``cuda`` marker and skips without an NVIDIA
 GPU (a CUDA kernel has no CPU mode).  The file imports neither JAX nor
@@ -112,7 +112,7 @@ def test_sweep_through_kernels_equals_plain_path(cuda):
     assert ops.LAUNCHES == {"campaign_preempt": 384, "campaign_match": 192,
                             "campaign_advance": 192, "campaign_bill": 192,
                             "flash_attention": 0, "moe_gmm": 0,
-                            "mamba_scan": 0}
+                            "mamba_scan": 0, "mlstm_chunk": 0}
     want = sweep(specs, [0, 1], use_kernels=False)
     for a, b in zip(got.rows, want.rows):
         assert a["cost"] == pytest.approx(b["cost"], rel=1e-5)
@@ -297,3 +297,112 @@ def test_hybrid_forward_through_the_kernels(cuda):
     assert float(got) == pytest.approx(float(want), rel=1e-5)
     assert float(parts["aux"]) == pytest.approx(float(wparts["aux"]),
                                                 rel=1e-5)
+
+
+# -- mlstm_chunk ---------------------------------------------------------------
+
+# tests/test_kernels.py's tolerances for the mLSTM kernel
+MLSTM_TOL = {torch.float32: 5e-4, torch.bfloat16: 5e-2}
+
+
+def _mlstm_inputs(gen, lead, S, dqk, dv, dtype, gate_dtype=None):
+    """q/k/v normal, logi = normal - 5, logf = log_sigmoid(normal + 3),
+    as tests/test_kernels.py draws them; ``lead`` is (BH,) for the
+    kernel layout and (B, H) for the model layout (then (B, S, H, d))."""
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    if len(lead) == 1:
+        q, k, v = draw(*lead, S, dqk), draw(*lead, S, dqk), draw(*lead, S, dv)
+        gshape = (*lead, S, 1)
+    else:
+        B, H = lead
+        q, k, v = draw(B, S, H, dqk), draw(B, S, H, dqk), draw(B, S, H, dv)
+        gshape = (B, S, H)
+    li = draw(*gshape) - 5.0
+    lf = torch.nn.functional.logsigmoid(draw(*gshape) + 3.0)
+    gd = gate_dtype or dtype
+    return q.to(dtype), k.to(dtype), v.to(dtype), li.to(gd), lf.to(gd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BH,S,dqk,dv,bs", [
+    (2, 128, 32, 32, 64),
+    (4, 256, 64, 64, 128),
+    (1, 128, 16, 48, 32),                # dqk != dv
+    (2, 256, 64, 80, 128),               # dv not a multiple of the tile
+    (1, 512, 96, 40, 256),               # block_s above the kernel's chunk
+])
+def test_mlstm_chunk_kernel_equals_plain_version(cuda, BH, S, dqk, dv, bs,
+                                                 dtype):
+    gen = torch.Generator(device=cuda).manual_seed(BH * S + dv)
+    q, k, v, li, lf = _mlstm_inputs(gen, (BH,), S, dqk, dv, dtype)
+    before = ops.LAUNCHES["mlstm_chunk"]
+    got = ops.mlstm_chunk(q, k, v, li, lf, block_s=bs)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["mlstm_chunk"] == before + 1
+    assert got.dtype == dtype and got.shape == (BH, S, dv)
+    tol = MLSTM_TOL[dtype]
+    torch.testing.assert_close(got.float(),
+                               ref.mlstm_ref(q, k, v, li, lf).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlstm_chunk_kernel_at_the_xlstm_shape(cuda, dtype):
+    """xlstm-350m's mLSTM at B=1: 4 heads, S=4096, dqk=dv=512, the model's
+    gates in f32."""
+    gen = torch.Generator(device=cuda).manual_seed(350)
+    q, k, v, li, lf = _mlstm_inputs(gen, (1, 4), 4096, 512, 512, dtype,
+                                    torch.float32)
+    got = ops.mlstm_chunk_model(q, k, v, li, lf)
+    torch.cuda.synchronize()
+    tol = MLSTM_TOL[dtype]
+    torch.testing.assert_close(
+        got.float(), ref.mlstm_model_ref(q, k, v, li, lf).float(),
+        rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [128, 300, 1])
+def test_mlstm_chunk_model_layout_reads_strided_views(cuda, S):
+    """The model's (B, S, H, d) views of a (B, H, S, d) tensor, bf16
+    streams with f32 gates, and any S (a ragged last chunk)."""
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    q, k, v, li, lf = _mlstm_inputs(gen, (2, 3), S, 32, 48, torch.bfloat16,
+                                    torch.float32)
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+               for t in (q, k, v))
+    li, lf = (t.transpose(1, 2).contiguous().transpose(1, 2)
+              for t in (li, lf))
+    assert S == 1 or not q.is_contiguous()
+    got = ops.mlstm_chunk_model(q, k, v, li, lf)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got.float(), ref.mlstm_model_ref(q, k, v, li, lf).float(),
+        rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.cuda
+def test_xlstm_forward_through_the_kernel(cuda):
+    """Reduced xlstm-350m on the card: the kernel path's loss equals the
+    chunked reference path's (S=200: one reference chunk of 200, kernel
+    chunks of 128 and 72); one mlstm_chunk launch per mLSTM layer."""
+    from repro_torch.configs import REDUCED_SHAPE, RunConfig, get_reduced
+    from repro_torch.launch.steps import _resolve_kernels
+    from repro_torch.models import forward_loss, init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_reduced("xlstm-350m")
+    params = init_params(cfg, 0, device=cuda)
+    tok = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 200)).astype(np.int32)).to(cuda)
+    batch = {"tokens": tok, "targets": tok}
+    hooks = _resolve_kernels(RunConfig(model=cfg, shape=REDUCED_SHAPE,
+                                       attention_impl="pallas"))
+    ops.reset_launches()
+    got, _ = forward_loss(params, cfg, batch, compute_dtype=torch.float32,
+                          **hooks)
+    assert ops.LAUNCHES["mlstm_chunk"] == 7
+    want, _ = forward_loss(params, cfg, batch, compute_dtype=torch.float32)
+    assert float(got) == pytest.approx(float(want), rel=1e-4)
