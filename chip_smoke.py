@@ -25,14 +25,20 @@ Phases (any failure raises and exits non-zero with no result line):
   6. flash   the flash attention kernel against its plain version at the
              yi-9b shape (B=2, S=4096, H=32, Hkv=4, D=128, causal) and the
              edge shapes of tests/test_kernels.py, plus q_offset and
-             kv_len cases, in f32 (2e-5) and bf16 (2e-2); per case the
-             per-call time (CUDA events), device time (profiler), plain
-             version's time, scaled_dot_product_attention's time (the
-             library yardstick, never called by the port) and the bound;
+             kv_len cases, in f32 (2e-5) and bf16 (2e-2) elementwise and
+             by the worst query row's relative error (1e-5 / 1e-2), on
+             each route that takes the case (bf16 with D = 64 / 128: the
+             tensor-core "wgmma" route and the CUDA-core "simt" route,
+             forced in turn; everything else: "simt"); per case and
+             route the per-call time (CUDA events), device time
+             (profiler), plain version's time,
+             scaled_dot_product_attention's time (the library yardstick,
+             never called by the port) and the bound;
   7. forward yi-9b at full width and depth (48 layers, random weights
              from the port's own init_params): forward_loss at B=2,
              S=4096 in bf16 and B=1, S=4096 in f32, each through the flash
-             kernel (48 launches) and through its plain version: finite
+             kernel (48 launches, all on the wgmma route in bf16 and on
+             the simt route in f32) and through its plain version: finite
              loss within 2.0 of ln 64000, kernel vs plain within 1e-2
              (bf16) / 1e-4 (f32) relative; tokens/s; a profiled forward;
   8. serve   BatchServer(slots=4, max_len=128) on the same weights answers
@@ -42,10 +48,10 @@ Phases (any failure raises and exits non-zero with no result line):
   9. gmm     the moe_gmm kernel against its plain version at the
              jamba-v0.1-52b shapes (E=16, C=1280 and 640, D=4096 -> F=14336
              and back), the decode C=8 and an unaligned shape, f32 and
-             bf16: max |err| / max |plain| within 1e-5 (f32) / 1e-2
-             (bf16); per case the per-call, device, plain version's and
-             torch.bmm's times (the library yardstick, never called by the
-             port) and the bound;
+             bf16 (bf16 on both routes, as in 6): max |err| / max |plain|
+             within 1e-5 (f32) / 1e-2 (bf16); per case and route the
+             per-call, device, plain version's and torch.bmm's times (the
+             library yardstick, never called by the port) and the bound;
  10. scan    the mamba_scan kernel against its plain version at jamba's
              shapes (B=2 with the model's bf16/f32 stream mix, B=1 in
              f32; S=4096, di=8192, N=16) and the edge shapes of
@@ -55,7 +61,8 @@ Phases (any failure raises and exits non-zero with no result line):
              super-block deep (8 of 32 layers, random weights from the
              port's init_params): forward_loss at B=2, S=4096 in bf16 and
              B=1, S=4096 in f32, through the kernels (attention_impl=
-             "pallas": flash 1, moe_gmm 12 and mamba_scan 7 launches) and
+             "pallas": flash 1, moe_gmm 12 and mamba_scan 7 launches, the
+             first two on the wgmma route in bf16) and
              through the reference path: finite loss, kernels vs reference
              within 1e-2 (bf16) / 1e-4 (f32) relative; tokens/s, peak
              memory, a profiled bf16 forward on each path;
@@ -82,7 +89,9 @@ Phases (any failure raises and exits non-zero with no result line):
              each path;
  15. xserved BatchServer(slots=4, max_len=128) on the xlstm weights, f32,
              8 requests as in 8, and the prefill-vs-decode check;
- 16. report  a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+ 16. report  a ``{"kernels": [...]}`` line (each entry with its route,
+             "cuda", and "cuda_route", the kernel's route on the main path:
+             "wgmma" or "simt"), the nvidia-smi line, and last
              ``{"ok": true, "device": {...}}``.
 
 Exits 2 without a card or without the repository's ``src/`` beside it.
@@ -417,6 +426,12 @@ def profile_window(specs, seeds) -> None:
 # -- phase 6: the flash attention kernel against its plain version -------
 
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# the worst query row's |err| / |plain| (2-norms over the head dim): a
+# check that scales with the output, which the elementwise gate above
+# does not where |o| is ~0.03 (a row that averages thousands of keys); a
+# dropped key tile or a row mis-scaled by 1/32 moves a row by more than
+# 3e-2, sound bf16 rounding by a few 1e-3
+FLASH_ROW_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # (label, model layout?, shapes, kwargs); model layout: B, Sq, Skv, H,
 # Hkv, D, causal; kernel layout: BHG, BKV, Sq, Skv, D and the keywords
 FLASH_CASES = [
@@ -442,9 +457,24 @@ def valid_pairs(Sq: int, Skv: int, causal: bool, kv_len=None,
     return int(np.clip(q_offset + i + 1, 0, lim).sum())
 
 
+# the profiler's kernel name of each route
+FLASH_KERNEL = {"wgmma": "flash_attention_kernel_wgmma",
+                "simt": "flash_attention_kernel<"}
+GMM_KERNEL = {"wgmma": "moe_gmm_kernel_wgmma", "simt": "moe_gmm_kernel("}
+
+
+def worst_row_err(got, want) -> float:
+    """max over query rows of ||got - want|| / ||want||, the norms over
+    the last (head) dim; rows of zeros in want count their error alone."""
+    diff = (got.float() - want.float()).square_().sum(-1).sqrt_()
+    norm = want.float().square().sum(-1).sqrt_().clamp_min_(1e-30)
+    return float((diff / norm).max())
+
+
 def check_flash(dev) -> dict:
-    """Every case in f32 and bf16: kernel vs plain version within the
-    tolerance, then the timings.  Returns {(label, dtype): numbers}."""
+    """Every case in f32 and bf16, on each route that takes it: kernel vs
+    plain version within the tolerance, then the timings.  Returns
+    {(label, dtype, route): numbers}."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev).manual_seed(12)
@@ -491,18 +521,10 @@ def check_flash(dev) -> dict:
                 return F.scaled_dot_product_attention(
                     qs, ks, vs, attn_mask=mask, enable_gqa=True)
 
-            got = kern()
+            # the inputs are contiguous: the rule rests on dtype and D
+            rule = ops.flash_route(dtype, D, [0], [0])
+            routes = ("wgmma", "simt") if rule == "wgmma" else ("simt",)
             want = plain()
-            torch.cuda.synchronize()
-            if not torch.isfinite(got.float()).all():
-                fail(f"flash {label} {dtype}: non-finite output")
-            diff = (got.float() - want.float()).abs()
-            err = float(diff.max())
-            tol = FLASH_TOL[dtype]
-            if bool((diff > tol + tol * want.float().abs()).any()):
-                fail(f"flash {label} {dtype}: kernel differs from plain "
-                     f"version (max abs err {err}, tolerance {tol})")
-            del got, want
             big = Sq * Skv * B * H >= 2 ** 28
             iters, warm = (5, 2) if big else (50, 5)
             pairs = valid_pairs(Sq, Skv, causal, kw.get("kv_len"),
@@ -511,25 +533,55 @@ def check_flash(dev) -> dict:
             moved = nbytes(q, k, v) + q.numel() * q.element_size()
             b, how = bound(moved, flops, BF16_FLOPS_PER_S
                            if dtype == torch.bfloat16 else FP32_FLOPS_PER_S)
-            res = {"max_abs_err": err,
-                   "ms": time_ms(kern, iters, warm),
-                   "plain_ms": time_ms(plain, iters, warm),
-                   "library_ms": time_ms(library, iters, warm),
-                   "device_ms": device_ms(kern, "flash_attention_kernel",
-                                          calls=8 if big else 20),
-                   "bound_ms": b, "bound_by": how,
-                   "bound_bytes_ms": moved / HBM_BYTES_PER_S * 1e3,
-                   "flops": flops}
-            out[(label, dtype)] = res
-            dev_ms = "not measured" if res["device_ms"] is None \
-                else f"{res['device_ms']:.4f} ms"
-            log(f"[flash] {label} {str(dtype)[6:]} q{q_shape} kv{kv_shape} "
-                f"{kw or ''}: max abs err {err:.3g} (tol {tol}); kernel "
-                f"{res['ms']:.4f} ms (device {dev_ms}), plain "
-                f"{res['plain_ms']:.4f} ms, sdpa {res['library_ms']:.4f} "
-                f"ms; bound {b:.4f} ms by {how} ({flops / 1e9:.2f} GFLOP, "
-                f"bytes term {res['bound_bytes_ms']:.4f} ms); kernel at "
-                f"{flops / res['ms'] / 1e9:.2f} TFLOP/s")
+            plain_ms = time_ms(plain, iters, warm)
+            library_ms = time_ms(library, iters, warm)
+            tol, row_tol = FLASH_TOL[dtype], FLASH_ROW_TOL[dtype]
+            for route in routes:
+                with ops._force_route("flash_attention", route):
+                    before = ops.ROUTES[f"flash_attention.{route}"]
+                    got = kern()
+                    torch.cuda.synchronize()
+                    if ops.ROUTES[f"flash_attention.{route}"] != before + 1:
+                        fail(f"flash {label} {dtype}: no launch on the "
+                             f"{route} route")
+                    if not torch.isfinite(got.float()).all():
+                        fail(f"flash {label} {dtype} {route}: non-finite "
+                             "output")
+                    diff = (got.float() - want.float()).abs()
+                    err = float(diff.max())
+                    far = bool((diff > tol + tol * want.float().abs()).any())
+                    del diff
+                    row = worst_row_err(got, want)
+                    if far or row > row_tol:
+                        fail(f"flash {label} {dtype} {route}: kernel "
+                             f"differs from plain version (elementwise "
+                             f"gate {'failed' if far else 'passed'}: max "
+                             f"abs err {err}, tolerance {tol} + {tol} "
+                             f"|plain|; worst row {row}, tolerance "
+                             f"{row_tol})")
+                    del got
+                    res = {"max_abs_err": err, "worst_row_err": row,
+                           "ms": time_ms(kern, iters, warm),
+                           "plain_ms": plain_ms, "library_ms": library_ms,
+                           "device_ms": device_ms(kern, FLASH_KERNEL[route],
+                                                  calls=8 if big else 20),
+                           "bound_ms": b, "bound_by": how,
+                           "bound_bytes_ms": moved / HBM_BYTES_PER_S * 1e3,
+                           "flops": flops}
+                out[(label, dtype, route)] = res
+                dev_ms = "not measured" if res["device_ms"] is None \
+                    else f"{res['device_ms']:.4f} ms"
+                log(f"[flash] {label} {str(dtype)[6:]} q{q_shape} "
+                    f"kv{kv_shape} {kw or ''}: {route} route, max abs err "
+                    f"{err:.3g} (tol {tol}), worst row {row:.3g} (tol "
+                    f"{row_tol}); kernel {res['ms']:.4f} ms "
+                    f"(device {dev_ms}), plain {plain_ms:.4f} ms, sdpa "
+                    f"{library_ms:.4f} ms; bound {b:.4f} ms by {how} "
+                    f"({flops / 1e9:.2f} GFLOP, bytes term "
+                    f"{res['bound_bytes_ms']:.4f} ms); kernel at "
+                    f"{flops / res['ms'] / 1e9:.2f} TFLOP/s, "
+                    f"{100 * b / res['ms']:.1f}% of the bound")
+            del want
             torch.cuda.empty_cache()
     return out
 
@@ -570,13 +622,20 @@ def forward_phase(params, cfg, dev) -> dict:
                                    flash_fn=fn)
             torch.cuda.synchronize()
             secs[label] = time.perf_counter() - t0
-            launches = dict(ops.LAUNCHES)
+            launches, routes = dict(ops.LAUNCHES), dict(ops.ROUTES)
             want = {name: 0 for name in launches}
             want["flash_attention"] = cfg.num_layers if label == "kernel" \
                 else 0
             if launches != want:
                 fail(f"forward {label} {dtype}: launches {launches}, "
                      f"expected {want}")
+            route = "wgmma" if dtype == torch.bfloat16 else "simt"
+            want_routes = {name: 0 for name in routes}
+            want_routes[f"flash_attention.{route}"] = \
+                want["flash_attention"]
+            if routes != want_routes:
+                fail(f"forward {label} {dtype}: routes {routes}, expected "
+                     f"{want_routes}")
             losses[label] = float(loss)
             if not math.isfinite(losses[label]) or \
                     abs(losses[label] - ln_v) > 2.0:
@@ -585,7 +644,8 @@ def forward_phase(params, cfg, dev) -> dict:
             log(f"[forward] {cfg.name} {cfg.num_layers}L {str(dtype)[6:]} B={B} "
                 f"S={S} via {label}: loss {losses[label]:.6f}, "
                 f"{secs[label]:.3f} s ({B * S / secs[label]:.1f} tokens/s), "
-                f"flash launches {launches['flash_attention']}, peak "
+                f"flash launches {launches['flash_attention']} "
+                f"({ {k: n for k, n in routes.items() if n} }), peak "
                 f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
             if label == "kernel" and dtype == torch.bfloat16:
                 # device time per launch inside the forward: the main
@@ -750,7 +810,8 @@ def rel_err(got, want) -> float:
 
 
 def check_gmm(dev) -> dict:
-    """Every case in f32 and bf16; returns {(label, dtype): numbers}."""
+    """Every case in f32 and bf16, on each route that takes it; returns
+    {(label, dtype, route): numbers}."""
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev).manual_seed(13)
     out = {}
@@ -768,36 +829,51 @@ def check_gmm(dev) -> dict:
 
             def library():
                 return torch.bmm(x, w)
-            got, want = kern(), plain()
-            torch.cuda.synchronize()
-            err = rel_err(got, want)
-            tol = KERNEL_REL_TOL[dtype]
-            if not torch.isfinite(got.float()).all() or not err <= tol:
-                fail(f"gmm {label} {dtype}: kernel differs from plain "
-                     f"version ({err:.3g} of max |plain| > {tol})")
-            del got, want
+            rule = ops.gmm_route(dtype, dtype, D, F,
+                                 [x.data_ptr(), w.data_ptr()])
+            routes = ("wgmma", "simt") if rule == "wgmma" else ("simt",)
+            want = plain()
             flops = 2 * E * C * D * F
             b, how = bound(nbytes(x, w) + E * C * F * x.element_size(), flops,
                            BF16_FLOPS_PER_S if dtype == torch.bfloat16
                            else FP32_FLOPS_PER_S)
             big = flops > 1e11
             iters, warm = (3, 1) if big else (20, 3)
-            res = {"max_abs_err": err, "ms": time_ms(kern, iters, warm),
-                   "plain_ms": time_ms(plain, iters, warm),
-                   "library_ms": time_ms(library, iters, warm),
-                   "device_ms": device_ms(kern, "moe_gmm_kernel",
-                                          calls=4 if big else 20),
-                   "bound_ms": b, "bound_by": how}
-            out[(label, dtype)] = res
-            dev_ms = "not measured" if res["device_ms"] is None \
-                else f"{res['device_ms']:.4f} ms"
-            log(f"[gmm] {label} {str(dtype)[6:]} x({E},{C},{D}) w({E},{D},"
-                f"{F}): max err / max |plain| {err:.3g} (tol {tol}); kernel "
-                f"{res['ms']:.4f} ms (device {dev_ms}), plain "
-                f"{res['plain_ms']:.4f} ms, bmm {res['library_ms']:.4f} ms; "
-                f"bound {b:.4f} ms by {how}; kernel at "
-                f"{flops / res['ms'] / 1e9:.2f} TFLOP/s")
-            del x, w
+            plain_ms = time_ms(plain, iters, warm)
+            library_ms = time_ms(library, iters, warm)
+            tol = KERNEL_REL_TOL[dtype]
+            for route in routes:
+                with ops._force_route("moe_gmm", route):
+                    before = ops.ROUTES[f"moe_gmm.{route}"]
+                    got = kern()
+                    torch.cuda.synchronize()
+                    if ops.ROUTES[f"moe_gmm.{route}"] != before + 1:
+                        fail(f"gmm {label} {dtype}: no launch on the "
+                             f"{route} route")
+                    err = rel_err(got, want)
+                    if not torch.isfinite(got.float()).all() or \
+                            not err <= tol:
+                        fail(f"gmm {label} {dtype} {route}: kernel differs "
+                             f"from plain version ({err:.3g} of max |plain| "
+                             f"> {tol})")
+                    del got
+                    res = {"max_abs_err": err,
+                           "ms": time_ms(kern, iters, warm),
+                           "plain_ms": plain_ms, "library_ms": library_ms,
+                           "device_ms": device_ms(kern, GMM_KERNEL[route],
+                                                  calls=4 if big else 20),
+                           "bound_ms": b, "bound_by": how}
+                out[(label, dtype, route)] = res
+                dev_ms = "not measured" if res["device_ms"] is None \
+                    else f"{res['device_ms']:.4f} ms"
+                log(f"[gmm] {label} {str(dtype)[6:]} x({E},{C},{D}) w({E},"
+                    f"{D},{F}): {route} route, max err / max |plain| "
+                    f"{err:.3g} (tol {tol}); kernel {res['ms']:.4f} ms "
+                    f"(device {dev_ms}), plain {plain_ms:.4f} ms, bmm "
+                    f"{library_ms:.4f} ms; bound {b:.4f} ms by {how}; "
+                    f"kernel at {flops / res['ms'] / 1e9:.2f} TFLOP/s, "
+                    f"{100 * b / res['ms']:.1f}% of the bound")
+            del x, w, want
             torch.cuda.empty_cache()
     return out
 
@@ -901,13 +977,20 @@ def hybrid_forward_phase(params, cfg, dev) -> dict:
                                        compute_dtype=dtype, **kw)
             torch.cuda.synchronize()
             secs[label] = time.perf_counter() - t0
-            launches = dict(ops.LAUNCHES)
+            launches, routes = dict(ops.LAUNCHES), dict(ops.ROUTES)
             want = {name: 0 for name in launches}
             if label == "kernels":
                 want.update(kernel_launches)
             if launches != want:
                 fail(f"hybrid {label} {dtype}: launches {launches}, "
                      f"expected {want}")
+            route = "wgmma" if dtype == torch.bfloat16 else "simt"
+            want_routes = {name: 0 for name in routes}
+            for op in ("flash_attention", "moe_gmm"):
+                want_routes[f"{op}.{route}"] = want[op]
+            if routes != want_routes:
+                fail(f"hybrid {label} {dtype}: routes {routes}, expected "
+                     f"{want_routes}")
             losses[label] = float(loss)
             if not math.isfinite(losses[label]):
                 fail(f"hybrid {label} {dtype}: loss {losses[label]}")
@@ -915,7 +998,8 @@ def hybrid_forward_phase(params, cfg, dev) -> dict:
                 f"S={S} via {label}: loss {losses[label]:.6f} (aux "
                 f"{float(parts['aux']):.6f}), {secs[label]:.3f} s "
                 f"({B * S / secs[label]:.1f} tokens/s), launches "
-                f"{ {k: launches[k] for k in kernel_launches} }, peak "
+                f"{ {k: launches[k] for k in kernel_launches} } "
+                f"({ {k: n for k, n in routes.items() if n} }), peak "
                 f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
             if dtype != torch.bfloat16:
                 continue
@@ -1213,11 +1297,11 @@ def main() -> int:
     serve_phase(params, cfg, dev, tag="xserved")
     log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
 
-    yi = flash[("yi-9b", torch.bfloat16)]
+    yi = flash[("yi-9b", torch.bfloat16, "wgmma")]
     if yi["device_ms"] is None:          # the forward's own profile
         yi["device_ms"] = fwd["flash_device_ms"]
     # the main path's own shapes: the bf16 forward's up product and scan
-    main_gmm = gmm[("jamba-up-c1280", torch.bfloat16)]
+    main_gmm = gmm[("jamba-up-c1280", torch.bfloat16, "wgmma")]
     main_scan = scan[("jamba-b2-model", torch.bfloat16)]
     for res, name in ((main_gmm, "moe_gmm_kernel"),
                       (main_scan, "mamba_scan_kernel")):
@@ -1229,23 +1313,24 @@ def main() -> int:
     keys = ("max_abs_err", "ms", "plain_ms", "device_ms", "bound_ms",
             "bound_by", "library_ms")
     report = {"kernels": [
-        {"name": name, "route": "cuda", "source": CU_SOURCE,
-         "replaces": REPLACES[name],
+        {"name": name, "route": "cuda", "cuda_route": "simt",
+         "source": CU_SOURCE, "replaces": REPLACES[name],
          "launches": main_run["launches"][name],
          **kernels[name]} for name in REPLACES] + [
-        {"name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
-         "replaces": FLASH_REPLACES, "launches": fwd["launches"],
-         **{key: yi[key] for key in keys}},
-        {"name": "moe_gmm", "route": "cuda", "source": GMM_SOURCE,
-         "replaces": GMM_REPLACES,
+        {"name": "flash_attention", "route": "cuda", "cuda_route": "wgmma",
+         "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
+         "launches": fwd["launches"], **{key: yi[key] for key in keys}},
+        {"name": "moe_gmm", "route": "cuda", "cuda_route": "wgmma",
+         "source": GMM_SOURCE, "replaces": GMM_REPLACES,
          "launches": hybrid["launches"]["moe_gmm"],
          **{key: main_gmm[key] for key in keys}},
-        {"name": "mamba_scan", "route": "cuda", "source": SCAN_SOURCE,
-         "replaces": SCAN_REPLACES,
+        {"name": "mamba_scan", "route": "cuda", "cuda_route": "simt",
+         "source": SCAN_SOURCE, "replaces": SCAN_REPLACES,
          "launches": hybrid["launches"]["mamba_scan"],
          **{key: main_scan[key] for key in keys}},
-        {"name": "mlstm_chunk", "route": "cuda", "source": MLSTM_SOURCE,
-         "replaces": MLSTM_REPLACES, "launches": xlstm["launches"],
+        {"name": "mlstm_chunk", "route": "cuda", "cuda_route": "simt",
+         "source": MLSTM_SOURCE, "replaces": MLSTM_REPLACES,
+         "launches": xlstm["launches"],
          **{key: main_mlstm[key] for key in keys}}]}
     print(json.dumps(report))
     print(smi)

@@ -27,13 +27,15 @@ import time
 from pathlib import Path
 from typing import Optional
 
-__all__ = ["SOURCES", "NVCC_FLAGS", "build_dir", "library",
+__all__ = ["SOURCES", "HEADERS", "NVCC_FLAGS", "build_dir", "library",
            "last_build_seconds"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (_CSRC / "campaign_sweep.cu", _CSRC / "flash_attention.cu",
            _CSRC / "moe_gmm.cu", _CSRC / "mamba_scan.cu",
            _CSRC / "mlstm_chunk.cu")
+# included by the tensor-core kernels (flash_attention.cu, moe_gmm.cu)
+HEADERS = (_CSRC / "hopper.cuh",)
 # IEEE division and square root, no fast math: the allocator's floors
 # depend on every f32 operation rounding on its own
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -65,7 +67,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -113,8 +115,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # q_offset, scale, stream
     lib.flash_attention.argtypes = [p, p, p, p, p, *[i] * 10,
                                     ctypes.c_float, p]
+    # the same without the type flag, bf16 only (the tensor-core route)
+    lib.flash_attention_wgmma.argtypes = [p, p, p, p, p, *[i] * 9,
+                                          ctypes.c_float, p]
     # x, w, o, x_bf16, w_bf16, E, C, D, F, stream
     lib.moe_gmm.argtypes = [p, p, p, *[i] * 6, p]
+    # x, w, o, E, C, D, F, stream (bf16, the tensor-core route)
+    lib.moe_gmm_wgmma.argtypes = [p, p, p, *[i] * 4, p]
     # xc, dt, bm, cm, a, y, types, B, S, di, N, stream
     lib.mamba_scan.argtypes = [p, p, p, p, p, p, *[i] * 5, p]
     # q, k, v, logi, logf, o, strides, types, B, H, S, dqk, dv, chunk,
@@ -122,8 +129,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mlstm_chunk.argtypes = [p, p, p, p, p, p, p, *[i] * 7,
                                 ctypes.c_float, p]
     for fn in (lib.campaign_alloc, lib.campaign_advance, lib.campaign_bill,
-               lib.flash_attention, lib.moe_gmm, lib.mamba_scan,
-               lib.mlstm_chunk):
+               lib.flash_attention, lib.flash_attention_wgmma, lib.moe_gmm,
+               lib.moe_gmm_wgmma, lib.mamba_scan, lib.mlstm_chunk):
         fn.restype = ctypes.c_int
     return lib
 

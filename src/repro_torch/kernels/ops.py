@@ -8,7 +8,14 @@ raises.  The kernel launches on PyTorch's current stream; the wrapper
 allocates its outputs.
 
 ``LAUNCHES`` counts kernel launches per wrapper, and only those, so a
-run can show that its main path went through the kernels.
+run can show that its main path went through the kernels.  Two kernels
+have two routes each: a tensor-core one (``wgmma``: bf16 through TMA and
+wgmma) and the CUDA-core one (``simt``: everything else).  A stated rule
+picks the route (``flash_route``, ``gmm_route``); ``ROUTES`` counts the
+launches of each route beside ``LAUNCHES``.  ``_force_route`` pins one
+for the harness and the tests, which time and check both routes on the
+same inputs (forcing the wgmma route on an input its rule refuses
+raises); nothing in the models or the launch path calls it.
 
   wrapper             kernel            replaces (JAX package)
   campaign_preempt    campaign_alloc    kernels/campaign_sweep.py:69
@@ -16,22 +23,26 @@ run can show that its main path went through the kernels.
   campaign_advance    campaign_advance  kernels/campaign_sweep.py:93
   campaign_bill       campaign_bill     kernels/campaign_sweep.py:117
   flash_attention     flash_attention   kernels/flash_attention.py:79
+                      (flash_attention_wgmma on the tensor-core route)
   (and flash_attention_kernel, its kernel-level entry point)
   moe_gmm             moe_gmm           kernels/moe_gmm.py:39
+                      (moe_gmm_wgmma on the tensor-core route)
   mamba_scan          mamba_scan        kernels/mamba_scan.py:51
   mlstm_chunk         mlstm_chunk       kernels/mlstm_chunk.py:74
   (and mlstm_chunk_model, its model-layout entry point)
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import ref
 
-__all__ = ["LAUNCHES", "reset_launches", "campaign_preempt",
+__all__ = ["LAUNCHES", "ROUTES", "reset_launches", "flash_route",
+           "gmm_route", "campaign_preempt",
            "campaign_match", "campaign_advance", "campaign_bill",
            "flash_attention", "flash_attention_kernel", "moe_gmm",
            "mamba_scan", "mlstm_chunk", "mlstm_chunk_model"]
@@ -40,11 +51,41 @@ LAUNCHES: Dict[str, int] = {"campaign_preempt": 0, "campaign_match": 0,
                             "campaign_advance": 0, "campaign_bill": 0,
                             "flash_attention": 0, "moe_gmm": 0,
                             "mamba_scan": 0, "mlstm_chunk": 0}
+# launches of each route of the two-route kernels ("op.route")
+ROUTES: Dict[str, int] = {"flash_attention.wgmma": 0,
+                          "flash_attention.simt": 0,
+                          "moe_gmm.wgmma": 0, "moe_gmm.simt": 0}
+_FORCED: Dict[str, Optional[str]] = {"flash_attention": None,
+                                     "moe_gmm": None}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, ROUTES):
+        for name in counts:
+            counts[name] = 0
+
+
+@contextlib.contextmanager
+def _force_route(op: str, route: Optional[str]) -> Iterator[None]:
+    """Pin ``op`` ("flash_attention" or "moe_gmm") to ``route`` ("wgmma"
+    or "simt"; None: the rule) inside the block.  A forced wgmma route
+    on an input the rule would not send there raises."""
+    if op not in _FORCED or route not in (None, "wgmma", "simt"):
+        raise ValueError(f"_force_route: no route {route!r} for {op!r}")
+    before = _FORCED[op]
+    _FORCED[op] = route
+    try:
+        yield
+    finally:
+        _FORCED[op] = before
+
+
+def _pick(op: str, rule: str) -> str:
+    forced = _FORCED[op]
+    if forced == "wgmma" and rule != "wgmma":
+        raise ValueError(f"{op}: the wgmma route was forced on an input "
+                         "its rule sends to the CUDA cores")
+    return forced or rule
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype,
@@ -187,15 +228,45 @@ def _rows(t: torch.Tensor) -> torch.Tensor:
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
+_WGMMA_HEAD_DIMS = (64, 128)   # the tensor-core kernel's instantiations
+
+
+def flash_route(dtype: torch.dtype, head_dim: int, strides: Sequence[int],
+                ptrs: Sequence[int]) -> str:
+    """The flash kernel's route: "wgmma" for bf16 with a head dim of 64
+    or 128 whose element strides (the 12 passed to the kernel) are all
+    multiples of 8 and whose base addresses are 16-byte aligned (what a
+    TMA tensor map can express); "simt" for everything else (f32, whose
+    2e-5 gate is beyond bf16 or TF32 tensor cores, other head dims, odd
+    strides)."""
+    if dtype == torch.bfloat16 and head_dim in _WGMMA_HEAD_DIMS and \
+            all(st % 8 == 0 for st in strides) and \
+            all(p % 16 == 0 for p in ptrs):
+        return "wgmma"
+    return "simt"
+
+
 def _launch_flash(q, k, v, o, strides, B, H, Hkv, Sq, Skv, D, causal,
                   kv_len, q_offset, scale) -> None:
     from repro_torch.kernels.build import library
+    op = "flash_attention"
+    route = _pick(op, flash_route(q.dtype, D, strides, [
+        t.data_ptr() for t in (q, k, v, o)]))
     st = (ctypes.c_longlong * 12)(*strides)
-    _raise_on(library().flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), st,
-        int(q.dtype == torch.bfloat16), B, H, Hkv, Sq, Skv, D, int(causal),
-        kv_len, q_offset, scale, _stream(q)), "flash_attention")
-    LAUNCHES["flash_attention"] += 1
+    lib = library()
+    if route == "wgmma":
+        err = lib.flash_attention_wgmma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), st, B, H,
+            Hkv, Sq, Skv, D, int(causal), kv_len, q_offset, scale,
+            _stream(q))
+    else:
+        err = lib.flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), st,
+            int(q.dtype == torch.bfloat16), B, H, Hkv, Sq, Skv, D,
+            int(causal), kv_len, q_offset, scale, _stream(q))
+    _raise_on(err, op)
+    LAUNCHES[op] += 1
+    ROUTES[f"{op}.{route}"] += 1
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -271,6 +342,18 @@ def _is_bf16(t: torch.Tensor) -> int:
     return int(t.dtype == torch.bfloat16)
 
 
+def gmm_route(x_dtype: torch.dtype, w_dtype: torch.dtype, D: int, F: int,
+              ptrs: Sequence[int]) -> str:
+    """moe_gmm's route: "wgmma" when x and w are both bf16, D and F are
+    multiples of 8 (16-byte row strides) and the bases are 16-byte
+    aligned (what a TMA tensor map can express); "simt" for everything
+    else (f32, mixed types, unaligned widths)."""
+    if x_dtype == w_dtype == torch.bfloat16 and D % 8 == 0 and F % 8 == 0 \
+            and all(p % 16 == 0 for p in ptrs):
+        return "wgmma"
+    return "simt"
+
+
 def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Per-expert product x (E,C,D) @ w (E,D,F) -> (E,C,F) with f32
     accumulation, in x's dtype.  x and w are each f32 or bf16; any C, D
@@ -289,10 +372,18 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"{op}: {E} experts of {C} rows exceed the grid")
     from repro_torch.kernels.build import library
     o = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
-    _raise_on(library().moe_gmm(
-        x.data_ptr(), w.data_ptr(), o.data_ptr(), _is_bf16(x), _is_bf16(w),
-        E, C, D, F, _stream(x)), op)
+    route = _pick(op, gmm_route(x.dtype, w.dtype, D, F,
+                                [x.data_ptr(), w.data_ptr(), o.data_ptr()]))
+    if route == "wgmma":
+        err = library().moe_gmm_wgmma(x.data_ptr(), w.data_ptr(),
+                                      o.data_ptr(), E, C, D, F, _stream(x))
+    else:
+        err = library().moe_gmm(x.data_ptr(), w.data_ptr(), o.data_ptr(),
+                                _is_bf16(x), _is_bf16(w), E, C, D, F,
+                                _stream(x))
+    _raise_on(err, op)
     LAUNCHES[op] += 1
+    ROUTES[f"{op}.{route}"] += 1
     return o
 
 
