@@ -55,8 +55,11 @@ Phases (any failure raises and exits non-zero with no result line):
  10. scan    the mamba_scan kernel against its plain version at jamba's
              shapes (B=2 with the model's bf16/f32 stream mix, B=1 in
              f32; S=4096, di=8192, N=16) and the edge shapes of
-             tests/test_kernels.py, the same criterion and timings (no
-             library call computes it);
+             tests/test_kernels.py, the same criterion plus the worst
+             (b, t) row's relative error over di (1e-5 / 1e-2), the same
+             timings (no library call computes it), the byte bound and
+             the special-function unit's floor (one exp per state
+             update at 16 a clock per SM);
  11. hybrid the yi-9b weights freed, jamba-v0.1-52b at full width, one
              super-block deep (8 of 32 layers, random weights from the
              port's init_params): forward_loss at B=2, S=4096 in bf16 and
@@ -70,19 +73,25 @@ Phases (any failure raises and exits non-zero with no result line):
              8 requests as in 8; the prefill-vs-decode check on a prompt
              whose MoE layers drop no token (drops counted, asserted 0);
  13. mlstm   the mlstm_chunk kernel against its plain version (the
-             sequential mLSTM) at xlstm-350m's shapes (B=2, H=4, S=4096,
-             dqk=dv=512 in the model layout, q/k/v bf16 with f32 gates;
-             B=1 all f32), the edge shapes of tests/test_kernels.py in f32
-             and bf16 and a dv that is not a multiple of the kernel's
-             tile: elementwise within 5e-4 (f32) / 5e-2 (bf16) absolute
-             plus relative, the per-call, device and plain version's times
-             (the plain loop over S timed over 3 calls) and the bound (no
-             library call computes it);
+             sequential mLSTM, computed once per case) at xlstm-350m's
+             shapes (B=2, H=4, S=4096, dqk=dv=512 in the model layout,
+             q/k/v bf16 with f32 gates; B=1 all f32), the edge shapes of
+             tests/test_kernels.py in f32 and bf16 and a dv that is not a
+             multiple of the kernel's tile, on each route that takes the
+             case (bf16: the two-phase tensor-core "wgmma" route and the
+             CUDA-core "simt" route, forced in turn, one launch each;
+             f32: "simt"): elementwise within 5e-4 (f32) / 5e-2 (bf16)
+             absolute plus relative, and the worst (b, t, h) row's
+             relative error over dv (MLSTM_ROW_TOL); the per-call, device
+             (all of a call's CUDA kernels) and plain version's times (the
+             plain loop over S timed over 3 calls), the bound (no library
+             call computes it) and the design's own state-scratch traffic;
  14. xlstm   the jamba weights freed, xlstm-350m at full width and depth
              (24 layers: 21 mLSTM + 3 sLSTM, 530.2 M f32 parameters, random
              from the port's init_params): forward_loss at B=2, S=4096 in
              bf16 and B=1, S=4096 in f32, through the kernel
-             (attention_impl="pallas": 21 mlstm_chunk launches) and through
+             (attention_impl="pallas": 21 mlstm_chunk launches, all on the
+             wgmma route in bf16 and on the simt route in f32) and through
              the chunked reference path: finite loss within 2.0 of ln
              50304, kernel vs reference within 1e-2 (bf16) / 1e-4 (f32)
              relative; tokens/s, peak memory, a profiled bf16 forward on
@@ -94,12 +103,17 @@ Phases (any failure raises and exits non-zero with no result line):
              "wgmma" or "simt"), the nvidia-smi line, and last
              ``{"ok": true, "device": {...}}``.
 
+Device times are per wrapper call: a call that launches several CUDA
+kernels (mlstm_chunk's tensor-core route: three; mamba_scan with its
+sequence in segments: two) counts all of them.
+
 Exits 2 without a card or without the repository's ``src/`` beside it.
 """
 from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -112,6 +126,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
 FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+SFU_PER_CLOCK_PER_SM = 16        # special-function unit results (exp)
+SMS = 132
 BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
 CU_SOURCE = "src/repro_torch/kernels/csrc/campaign_sweep.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -126,7 +142,7 @@ GMM_SOURCE = "src/repro_torch/kernels/csrc/moe_gmm.cu"
 GMM_REPLACES = "src/repro/kernels/moe_gmm.py:39"
 SCAN_SOURCE = "src/repro_torch/kernels/csrc/mamba_scan.cu"
 SCAN_REPLACES = "src/repro/kernels/mamba_scan.py:51"
-MLSTM_SOURCE = "src/repro_torch/kernels/csrc/mlstm_chunk.cu"
+MLSTM_SOURCE = "src/repro_torch/kernels/csrc/mlstm_chunk_wgmma.cu"
 MLSTM_REPLACES = "src/repro/kernels/mlstm_chunk.py:74"
 INT_COUNTERS = ("preemptions", "jobs_finished", "nat_drops")
 REL = 1e-5
@@ -216,9 +232,25 @@ def profiled(fn):
             if e.device_type == DeviceType.CUDA and e.count]
 
 
+def kernel_name(key: str) -> str:
+    """A CUDA kernel's name from the profiler's demangled signature."""
+    found = re.search(r"(\w+(?:<[^<>]*>)?)\(", key)
+    return found.group(1) if found else key[:60]
+
+
+def per_call_ms(hits) -> float:
+    """Device ms per wrapper call from the profiler's averages of the
+    CUDA kernels one call launches, each once: the sum over kernel names
+    of each name's mean.  Short windows sometimes drop some launches'
+    events, so a total over the calls made would undercount."""
+    return sum(e.self_device_time_total / e.count for e in hits) / 1e3
+
+
 def device_ms(fn, kernel: str, calls: int = 50):
-    """Mean device time (ms) of ``kernel`` over ``calls`` calls of
-    ``fn``, from the profiler trace; None where the trace has none."""
+    """Mean device time (ms) per call of ``fn`` spent in the CUDA kernels
+    whose names contain ``kernel`` (all of them: a call may launch
+    several), from the profiler trace of ``calls`` calls; None where the
+    trace has none."""
     def many():
         for _ in range(calls):
             fn()
@@ -233,8 +265,12 @@ def device_ms(fn, kernel: str, calls: int = 50):
             f"{len(seen)} device events")
     else:
         return None
-    return sum(e.self_device_time_total for e in hits) \
-        / sum(e.count for e in hits) / 1e3
+    if len(hits) > 1:                  # where a call's time goes
+        log("[profile] per call: " + ", ".join(
+            f"{kernel_name(e.key)} "
+            f"{e.self_device_time_total / e.count / 1e3:.4f} ms"
+            for e in hits))
+    return per_call_ms(hits)
 
 
 def bound(nbytes: int, flops: int, peak: float = FP32_FLOPS_PER_S):
@@ -668,8 +704,9 @@ def forward_phase(params, cfg, dev) -> dict:
 def profile_forward(fn, wall: float, tag: str = "forward",
                     kernels=("flash_attention_kernel",)) -> dict:
     """Device time by kernel over one profiled forward, against the wall
-    time of an unprofiled one; returns each named kernel's mean device
-    ms per launch (None where the trace has none)."""
+    time of an unprofiled one; returns, for each name (matched inside the
+    CUDA kernels' names), the device ms per wrapper call, all of a call's
+    CUDA kernels together (None where the trace has none)."""
     kern = profiled(fn)
     if not kern:
         log(f"[{tag}] device time not measured: the profiler trace holds "
@@ -685,8 +722,7 @@ def profile_forward(fn, wall: float, tag: str = "forward",
     out = {}
     for name in kernels:
         hits = [e for e in kern if name in e.key]
-        out[name] = sum(e.self_device_time_total for e in hits) \
-            / sum(e.count for e in hits) / 1e3 if hits else None
+        out[name] = per_call_ms(hits) if hits else None
     return out
 
 
@@ -801,6 +837,23 @@ SCAN_CASES = [("jamba-b2-model", 2, 4096, 8192, 16, (BF, F32, BF, F32)),
               ("edge-1x96x48x8", 1, 96, 48, 8, None)]
 
 
+# the worst (b, t) row's ||err|| / ||plain|| over di, beside the global
+# gate: a fault in one late segment or tile moves whole rows; sound rows
+# read at most ~1e-6 in f32 and ~6e-3 in bf16 (y rounded, twice where a
+# fix-up adds a segment's entering state) on an NVIDIA H100 80GB HBM3 at
+# 700 W
+SCAN_ROW_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def sm_clock_hz() -> float:
+    """The card's highest SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
 def rel_err(got, want) -> float:
     """max |kernel - plain| / max |plain|: the sums run in another order
     than the plain version's, so the error scales with the largest
@@ -883,6 +936,7 @@ def check_scan(dev) -> dict:
     returns {(label, xc dtype): numbers}."""
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev).manual_seed(14)
+    clock = sm_clock_hz()
     cases = []
     for label, B, S, di, N, dtypes in SCAN_CASES:
         for dt in ((dtypes,) if dtypes else ((F32,) * 4, (BF,) * 4)):
@@ -907,18 +961,24 @@ def check_scan(dev) -> dict:
         got, want = kern(), plain()
         torch.cuda.synchronize()
         err = rel_err(got, want)
-        tol = KERNEL_REL_TOL[xc.dtype]
-        if not torch.isfinite(got.float()).all() or not err <= tol:
+        row = worst_row_err(got, want)
+        tol, row_tol = KERNEL_REL_TOL[xc.dtype], SCAN_ROW_TOL[xc.dtype]
+        if not torch.isfinite(got.float()).all() or not err <= tol or \
+                not row <= row_tol:
             fail(f"scan {label} {dtypes}: kernel differs from plain version "
-                 f"({err:.3g} of max |plain| > {tol})")
+                 f"({err:.3g} of max |plain|, tolerance {tol}; worst row "
+                 f"{row:.3g}, tolerance {row_tol})")
         del got, want
         # per state element: dt*a, exp, two products, the add, h*C and
         # the sum over N (f32 on the CUDA cores); per channel dt*x
         flops = 7 * B * S * di * N + B * S * di
         b, how = bound(nbytes(xc, dt, bm, cm, a) + xc.numel()
                        * xc.element_size(), flops)
+        # one exp per state update on the special-function unit
+        sfu_ms = B * S * di * N / (SFU_PER_CLOCK_PER_SM * SMS * clock) * 1e3
+        segments = -(-S // ops.scan_segment_len(B, S, di))
         big = S * di >= 2 ** 24
-        res = {"max_abs_err": err,
+        res = {"max_abs_err": err, "worst_row_err": row, "sfu_ms": sfu_ms,
                "ms": time_ms(kern, 5 if big else 50, 2 if big else 5),
                "plain_ms": time_ms(plain, 1 if big else 3, 1),
                "library_ms": None,
@@ -930,9 +990,11 @@ def check_scan(dev) -> dict:
             else f"{res['device_ms']:.4f} ms"
         names = "/".join(str(d)[6:] for d in dtypes)
         log(f"[scan] {label} ({B},{S},{di},{N}) {names}: max err / max "
-            f"|plain| {err:.3g} (tol {tol}); kernel {res['ms']:.4f} ms "
+            f"|plain| {err:.3g} (tol {tol}), worst row {row:.3g} (tol "
+            f"{row_tol}); {segments} segment(s); kernel {res['ms']:.4f} ms "
             f"(device {dev_ms}), plain {res['plain_ms']:.4f} ms; bound "
-            f"{b:.4f} ms by {how}")
+            f"{b:.4f} ms by {how}; SFU floor {sfu_ms:.4f} ms ({B * S * di * N / 1e9:.3f} "
+            f"G exp at 16 a clock per SM, {clock / 1e9:.3f} GHz)")
         del xc, dt, bm, cm, a
         torch.cuda.empty_cache()
     return out
@@ -1030,6 +1092,16 @@ def hybrid_forward_phase(params, cfg, dev) -> dict:
 # -- phase 13: mlstm_chunk against its plain version ------------------------
 
 MLSTM_TOL = {torch.float32: 5e-4, torch.bfloat16: 5e-2}
+# the worst (b, t, h) row's ||err|| / ||plain|| over dv: a stale, skipped
+# or mis-rescaled state entering one late chunk moves whole rows of it,
+# which the elementwise gate above (5e-2 + 5e-2 |plain|) may not see
+# (sound rows read at most ~3.5e-5 in f32, ~1.4e-2 on the bf16 tensor-core
+# route at the xlstm shape, on an NVIDIA H100 80GB HBM3 at 700 W; a state
+# dropped or left unrescaled at chunk 30 of 32 reads 1.0 and 3.5)
+MLSTM_ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# the profiler's kernel names of each route (the wgmma route launches
+# mlstm_chunk_wgmma_gates, _states and _outputs)
+MLSTM_KERNEL = {"wgmma": "mlstm_chunk_wgmma", "simt": "mlstm_chunk_kernel"}
 # (label, layout, shape, stream dtypes q/k/v, gates or None for the
 # case's dtype in both): the model layout is (B, H, S, dqk, dv) through
 # mlstm_chunk_model, the kernel layout (BH, S, dqk, dv, block_s) through
@@ -1057,8 +1129,9 @@ def mlstm_flops(BH: int, S: int, dqk: int, dv: int, chunk: int) -> int:
 
 
 def check_mlstm(dev) -> dict:
-    """Every case in its dtypes (the kernel-layout ones in f32 and bf16);
-    returns {(label, q dtype): numbers}."""
+    """Every case in its dtypes (the kernel-layout ones in f32 and bf16),
+    on each route that takes it; returns {(label, q dtype, route):
+    numbers}."""
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev).manual_seed(15)
     cases = []
@@ -1085,45 +1158,75 @@ def check_mlstm(dev) -> dict:
 
             def plain():
                 return ref.mlstm_model_ref(q, k, v, li, lf)
+            strides = [x for t in (q, k, v, v) for x in (
+                t.stride(0), t.stride(2), t.stride(1))]
         else:
             def kern():
                 return ops.mlstm_chunk(q, k, v, li, lf, block_s=bs)
 
             def plain():
                 return ref.mlstm_ref(q, k, v, li, lf)
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        diff = (got.float() - want.float()).abs()
-        err = float(diff.max())
-        tol = MLSTM_TOL[sdt]
-        if not torch.isfinite(got.float()).all() or \
-                bool((diff > tol + tol * want.float().abs()).any()):
-            fail(f"mlstm {label} {sdt}: kernel differs from plain version "
-                 f"(max abs err {err}, tolerance {tol})")
-        del got, want
+            strides = [x for t in (q, k, v, v) for x in (
+                t.stride(0), 0, t.stride(1))]
+        rule = ops.mlstm_route([sdt] * 3, dqk, dv, strides,
+                               [t.data_ptr() for t in (q, k, v)])
+        routes = ("wgmma", "simt") if rule == "wgmma" else ("simt",)
+        want = plain()                         # once, for every route
         flops = mlstm_flops(BH, S, dqk, dv, chunk)
         moved = nbytes(q, k, v, li, lf) + q.numel() // dqk * dv \
             * q.element_size()
         b, how = bound(moved, flops, BF16_FLOPS_PER_S if sdt == BF
                        else FP32_FLOPS_PER_S)
         big = S >= 4096
-        res = {"max_abs_err": err,
-               "ms": time_ms(kern, 5 if big else 50, 2 if big else 5),
-               "plain_ms": time_ms(plain, 3 if big else 5, 1),
-               "library_ms": None,
-               "device_ms": device_ms(kern, "mlstm_chunk_kernel",
-                                      calls=5 if big else 20),
-               "bound_ms": b, "bound_by": how}
-        out[(label, sdt)] = res
-        dev_ms = "not measured" if res["device_ms"] is None \
-            else f"{res['device_ms']:.4f} ms"
-        log(f"[mlstm] {label} {layout} {shape} {str(sdt)[6:]}/gates "
-            f"{str(gdt)[6:]}: max abs err {err:.3g} (tol {tol}); kernel "
-            f"{res['ms']:.4f} ms (device {dev_ms}), plain "
-            f"{res['plain_ms']:.4f} ms; bound {b:.4f} ms by {how} "
-            f"({flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB); kernel at "
-            f"{flops / res['ms'] / 1e9:.2f} TFLOP/s")
-        del q, k, v, li, lf
+        plain_ms = time_ms(plain, 3 if big else 5, 1)
+        tol, row_tol = MLSTM_TOL[sdt], MLSTM_ROW_TOL[sdt]
+        for route in routes:
+            with ops._force_route("mlstm_chunk", route):
+                before = ops.MLSTM_ROUTES[f"mlstm_chunk.{route}"]
+                got = kern()
+                torch.cuda.synchronize()
+                if ops.MLSTM_ROUTES[f"mlstm_chunk.{route}"] != before + 1:
+                    fail(f"mlstm {label} {sdt}: no launch on the {route} "
+                         "route")
+                if not torch.isfinite(got.float()).all():
+                    fail(f"mlstm {label} {sdt} {route}: non-finite output")
+                diff = (got.float() - want.float()).abs()
+                err = float(diff.max())
+                far = bool((diff > tol + tol * want.float().abs()).any())
+                del diff
+                row = worst_row_err(got, want)
+                if far or row > row_tol:
+                    fail(f"mlstm {label} {sdt} {route}: kernel differs from "
+                         f"plain version (elementwise gate "
+                         f"{'failed' if far else 'passed'}: max abs err "
+                         f"{err}, tolerance {tol} + {tol} |plain|; worst "
+                         f"row {row}, tolerance {row_tol})")
+                del got
+                # the two-phase route also writes and reads the state
+                # entering every chunk (C in bf16): its own traffic
+                state = 2 * 2 * BH * -(-S // chunk) * -(-dqk // 64) * 64 \
+                    * -(-dv // 128) * 128 if route == "wgmma" else 0
+                res = {"max_abs_err": err, "worst_row_err": row,
+                       "ms": time_ms(kern, 5 if big else 50,
+                                     2 if big else 5),
+                       "plain_ms": plain_ms, "library_ms": None,
+                       "device_ms": device_ms(kern, MLSTM_KERNEL[route],
+                                              calls=5 if big else 20),
+                       "bound_ms": b, "bound_by": how,
+                       "state_ms": state / HBM_BYTES_PER_S * 1e3}
+            out[(label, sdt, route)] = res
+            dev_ms = "not measured" if res["device_ms"] is None \
+                else f"{res['device_ms']:.4f} ms"
+            log(f"[mlstm] {label} {layout} {shape} {str(sdt)[6:]}/gates "
+                f"{str(gdt)[6:]}: {route} route, max abs err {err:.3g} (tol "
+                f"{tol}), worst row {row:.3g} (tol {row_tol}); kernel "
+                f"{res['ms']:.4f} ms (device {dev_ms}), plain "
+                f"{plain_ms:.4f} ms; bound {b:.4f} ms by {how} "
+                f"({flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB), state "
+                f"scratch written and read {state / 1e6:.1f} MB "
+                f"({res['state_ms']:.4f} ms); kernel at "
+                f"{flops / res['ms'] / 1e9:.2f} TFLOP/s")
+        del q, k, v, li, lf, want
         torch.cuda.empty_cache()
     return out
 
@@ -1164,13 +1267,19 @@ def xlstm_forward_phase(params, cfg, dev) -> dict:
                                    **kw)
             torch.cuda.synchronize()
             secs[label] = time.perf_counter() - t0
-            launches = dict(ops.LAUNCHES)
+            launches, routes = dict(ops.LAUNCHES), dict(ops.MLSTM_ROUTES)
             want = {name: 0 for name in launches}
             if label == "kernel":
                 want["mlstm_chunk"] = n_mlstm
             if launches != want:
                 fail(f"xlstm {label} {dtype}: launches {launches}, "
                      f"expected {want}")
+            route = "wgmma" if dtype == torch.bfloat16 else "simt"
+            want_routes = {name: 0 for name in routes}
+            want_routes[f"mlstm_chunk.{route}"] = want["mlstm_chunk"]
+            if routes != want_routes or any(ops.ROUTES.values()):
+                fail(f"xlstm {label} {dtype}: routes {routes} "
+                     f"{ops.ROUTES}, expected {want_routes}")
             losses[label] = float(loss)
             if not math.isfinite(losses[label]) or \
                     abs(losses[label] - ln_v) > 2.0:
@@ -1179,7 +1288,8 @@ def xlstm_forward_phase(params, cfg, dev) -> dict:
             log(f"[xlstm] {cfg.name} {len(layers)}L {str(dtype)[6:]} B={B} "
                 f"S={S} via {label}: loss {losses[label]:.6f}, "
                 f"{secs[label]:.3f} s ({B * S / secs[label]:.1f} tokens/s), "
-                f"mlstm_chunk launches {launches['mlstm_chunk']}, peak "
+                f"mlstm_chunk launches {launches['mlstm_chunk']} "
+                f"({ {k: n for k, n in routes.items() if n} }), peak "
                 f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
             if dtype != torch.bfloat16:
                 continue
@@ -1187,10 +1297,10 @@ def xlstm_forward_phase(params, cfg, dev) -> dict:
                 lambda: forward_loss(params, cfg, batch,
                                      compute_dtype=dtype, **kw),
                 secs[label], tag=f"xlstm {label}",
-                kernels=("mlstm_chunk_kernel",))
+                kernels=(MLSTM_KERNEL[route],))
             if label == "kernel":
                 out["launches"] = launches["mlstm_chunk"]
-                out["device_ms"] = prof["mlstm_chunk_kernel"]
+                out["device_ms"] = prof[MLSTM_KERNEL[route]]
         d = abs(losses["kernel"] - losses["reference"]) \
             / abs(losses["reference"])
         if d > rel:
@@ -1307,7 +1417,7 @@ def main() -> int:
                       (main_scan, "mamba_scan_kernel")):
         if res["device_ms"] is None:
             res["device_ms"] = hybrid["device_ms"][name]
-    main_mlstm = mlstm[("xlstm-b2-model", torch.bfloat16)]
+    main_mlstm = mlstm[("xlstm-b2-model", torch.bfloat16, "wgmma")]
     if main_mlstm["device_ms"] is None:
         main_mlstm["device_ms"] = xlstm["device_ms"]
     keys = ("max_abs_err", "ms", "plain_ms", "device_ms", "bound_ms",
@@ -1328,7 +1438,7 @@ def main() -> int:
          "source": SCAN_SOURCE, "replaces": SCAN_REPLACES,
          "launches": hybrid["launches"]["mamba_scan"],
          **{key: main_scan[key] for key in keys}},
-        {"name": "mlstm_chunk", "route": "cuda", "cuda_route": "simt",
+        {"name": "mlstm_chunk", "route": "cuda", "cuda_route": "wgmma",
          "source": MLSTM_SOURCE, "replaces": MLSTM_REPLACES,
          "launches": xlstm["launches"],
          **{key: main_mlstm[key] for key in keys}}]}

@@ -33,8 +33,9 @@ __all__ = ["SOURCES", "HEADERS", "NVCC_FLAGS", "build_dir", "library",
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (_CSRC / "campaign_sweep.cu", _CSRC / "flash_attention.cu",
            _CSRC / "moe_gmm.cu", _CSRC / "mamba_scan.cu",
-           _CSRC / "mlstm_chunk.cu")
-# included by the tensor-core kernels (flash_attention.cu, moe_gmm.cu)
+           _CSRC / "mlstm_chunk.cu", _CSRC / "mlstm_chunk_wgmma.cu")
+# included by the tensor-core kernels (flash_attention.cu, moe_gmm.cu,
+# mlstm_chunk_wgmma.cu)
 HEADERS = (_CSRC / "hopper.cuh",)
 # IEEE division and square root, no fast math: the allocator's floors
 # depend on every f32 operation rounding on its own
@@ -122,15 +123,22 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.moe_gmm.argtypes = [p, p, p, *[i] * 6, p]
     # x, w, o, E, C, D, F, stream (bf16, the tensor-core route)
     lib.moe_gmm_wgmma.argtypes = [p, p, p, *[i] * 4, p]
-    # xc, dt, bm, cm, a, y, types, B, S, di, N, stream
-    lib.mamba_scan.argtypes = [p, p, p, p, p, p, *[i] * 5, p]
+    # xc, dt, bm, cm, a, y, carry, types, B, S, di, N, seg_len, stream
+    lib.mamba_scan.argtypes = [p, p, p, p, p, p, p, *[i] * 6, p]
     # q, k, v, logi, logf, o, strides, types, B, H, S, dqk, dv, chunk,
     # scale, stream
     lib.mlstm_chunk.argtypes = [p, p, p, p, p, p, p, *[i] * 7,
                                 ctypes.c_float, p]
+    # the same, bf16 q/k/v (the tensor-core route), then the scratch and
+    # the stream; the scratch's bytes from B, H, S, dqk, dv, chunk
+    lib.mlstm_chunk_wgmma.argtypes = [p, p, p, p, p, p, p, *[i] * 7,
+                                      ctypes.c_float, p, p]
+    lib.mlstm_chunk_wgmma_scratch.argtypes = [i] * 6
+    lib.mlstm_chunk_wgmma_scratch.restype = ctypes.c_longlong
     for fn in (lib.campaign_alloc, lib.campaign_advance, lib.campaign_bill,
                lib.flash_attention, lib.flash_attention_wgmma, lib.moe_gmm,
-               lib.moe_gmm_wgmma, lib.mamba_scan, lib.mlstm_chunk):
+               lib.moe_gmm_wgmma, lib.mamba_scan, lib.mlstm_chunk,
+               lib.mlstm_chunk_wgmma):
         fn.restype = ctypes.c_int
     return lib
 

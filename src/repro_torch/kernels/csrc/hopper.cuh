@@ -1,10 +1,10 @@
 // Hopper (sm_90a) building blocks of the tensor-core kernels: TMA tensor
 // maps and tile loads, mbarriers, and warpgroup matrix multiplies (wgmma)
-// with their shared-memory descriptors.  Included by flash_attention.cu
-// and moe_gmm.cu; every function is inline, so the two translation units
-// link into one library without clashing symbols.
+// with their shared-memory descriptors.  Included by flash_attention.cu,
+// moe_gmm.cu and mlstm_chunk_wgmma.cu; every function is inline, so the
+// translation units link into one library without clashing symbols.
 //
-// Conventions of both kernels:
+// Conventions of these kernels:
 // - every tile is bf16, loaded by TMA with the 128-byte swizzle, as boxes
 //   of 64 elements (128 bytes) along the contiguous axis, so a box row is
 //   one swizzle row and 8 rows one 1024-byte swizzle atom; tiles start on
@@ -12,8 +12,8 @@
 // - a K-major operand (the reduction axis contiguous) advances 16
 //   elements by adding 32 bytes to the descriptor's start address; an
 //   MN-major operand (the output axis contiguous: w in moe_gmm, v in
-//   flash attention) advances 16 rows by 2048 bytes and sets the wgmma's
-//   transpose bit;
+//   flash attention and the mLSTM, k and C in the mLSTM) advances 16
+//   rows by 2048 bytes and sets the wgmma's transpose bit;
 // - the descriptor's leading byte offset (LBO) is the stride between
 //   64-element boxes along MN for an MN-major operand (unused for K-major),
 //   the stride byte offset (SBO) the stride between 8-row groups (1024).
@@ -160,6 +160,12 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// order this thread's generic-proxy writes to shared memory before later
+// async-proxy reads or writes of it (wgmma operands, TMA loads)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // -- device: warpgroup register budgets ---------------------------------------
 
 template <int N>
@@ -270,6 +276,27 @@ __device__ __forceinline__ void wgmma_ss_m64n256(float (&d)[128],
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B));
+}
+
+// D (64 x 64, f32) (+)= A (64 x 16, smem) . B (16 x 64, smem); TRANS_A = 1
+// reads an MN-major A (M contiguous: 16 rows of K at 2048-byte steps),
+// as TRANS_B does for B
+template <int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32],
+                                                uint64_t desc_a,
+                                                uint64_t desc_b,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 // D (64 x 64, f32) (+)= A (64 x 16, registers) . B (16 x 64, smem)

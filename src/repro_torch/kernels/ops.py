@@ -8,14 +8,17 @@ raises.  The kernel launches on PyTorch's current stream; the wrapper
 allocates its outputs.
 
 ``LAUNCHES`` counts kernel launches per wrapper, and only those, so a
-run can show that its main path went through the kernels.  Two kernels
-have two routes each: a tensor-core one (``wgmma``: bf16 through TMA and
-wgmma) and the CUDA-core one (``simt``: everything else).  A stated rule
-picks the route (``flash_route``, ``gmm_route``); ``ROUTES`` counts the
-launches of each route beside ``LAUNCHES``.  ``_force_route`` pins one
-for the harness and the tests, which time and check both routes on the
-same inputs (forcing the wgmma route on an input its rule refuses
-raises); nothing in the models or the launch path calls it.
+run can show that its main path went through the kernels (one per
+wrapper call, however many CUDA kernels the call launches).  Three
+kernels have two routes each: a tensor-core one (``wgmma``: bf16
+through TMA and wgmma) and the CUDA-core one (``simt``: everything
+else).  A stated rule picks the route (``flash_route``, ``gmm_route``,
+``mlstm_route``); ``ROUTES`` (flash attention and moe_gmm) and
+``MLSTM_ROUTES`` (mlstm_chunk) count the launches of each route beside
+``LAUNCHES``.  ``_force_route`` pins one for the harness and the tests,
+which time and check both routes on the same inputs (forcing the wgmma
+route on an input its rule refuses raises); nothing in the models or the
+launch path calls it.
 
   wrapper             kernel            replaces (JAX package)
   campaign_preempt    campaign_alloc    kernels/campaign_sweep.py:69
@@ -29,6 +32,9 @@ raises); nothing in the models or the launch path calls it.
                       (moe_gmm_wgmma on the tensor-core route)
   mamba_scan          mamba_scan        kernels/mamba_scan.py:51
   mlstm_chunk         mlstm_chunk       kernels/mlstm_chunk.py:74
+                      (mlstm_chunk_wgmma on the tensor-core route: the
+                      mlstm_chunk_wgmma_gates, _states and _outputs
+                      kernels)
   (and mlstm_chunk_model, its model-layout entry point)
 """
 from __future__ import annotations
@@ -41,8 +47,9 @@ import torch
 
 from repro_torch.kernels import ref
 
-__all__ = ["LAUNCHES", "ROUTES", "reset_launches", "flash_route",
-           "gmm_route", "campaign_preempt",
+__all__ = ["LAUNCHES", "ROUTES", "MLSTM_ROUTES", "reset_launches",
+           "flash_route", "gmm_route", "mlstm_route", "scan_segment_len",
+           "campaign_preempt",
            "campaign_match", "campaign_advance", "campaign_bill",
            "flash_attention", "flash_attention_kernel", "moe_gmm",
            "mamba_scan", "mlstm_chunk", "mlstm_chunk_model"]
@@ -55,21 +62,25 @@ LAUNCHES: Dict[str, int] = {"campaign_preempt": 0, "campaign_match": 0,
 ROUTES: Dict[str, int] = {"flash_attention.wgmma": 0,
                           "flash_attention.simt": 0,
                           "moe_gmm.wgmma": 0, "moe_gmm.simt": 0}
+# the same for the mLSTM kernel's two routes
+MLSTM_ROUTES: Dict[str, int] = {"mlstm_chunk.wgmma": 0,
+                                "mlstm_chunk.simt": 0}
 _FORCED: Dict[str, Optional[str]] = {"flash_attention": None,
-                                     "moe_gmm": None}
+                                     "moe_gmm": None, "mlstm_chunk": None}
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, ROUTES):
+    for counts in (LAUNCHES, ROUTES, MLSTM_ROUTES):
         for name in counts:
             counts[name] = 0
 
 
 @contextlib.contextmanager
 def _force_route(op: str, route: Optional[str]) -> Iterator[None]:
-    """Pin ``op`` ("flash_attention" or "moe_gmm") to ``route`` ("wgmma"
-    or "simt"; None: the rule) inside the block.  A forced wgmma route
-    on an input the rule would not send there raises."""
+    """Pin ``op`` ("flash_attention", "moe_gmm" or "mlstm_chunk") to
+    ``route`` ("wgmma" or "simt"; None: the rule) inside the block.  A
+    forced wgmma route on an input the rule would not send there
+    raises."""
     if op not in _FORCED or route not in (None, "wgmma", "simt"):
         raise ValueError(f"_force_route: no route {route!r} for {op!r}")
     before = _FORCED[op]
@@ -387,7 +398,31 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return o
 
 
-_MAX_STATE = 32              # the kernel keeps a channel's N states in a warp
+_MAX_STATE = 32              # a thread keeps a channel's N states (padded)
+_SCAN_TILE = 32              # the kernel's time tile: segments are whole tiles
+# (b, channel) threads from which S stays whole: 4 warps on each of 128
+# SMs; below it S is cut until there are _SCAN_THREADS threads
+_SCAN_WHOLE = 4 * 32 * 128
+_SCAN_THREADS = 16 * 32 * 128
+
+
+def scan_segment_len(B: int, S: int, di: int) -> int:
+    """Steps per segment of mamba_scan's sequence (a multiple of the
+    32-step tile).  One thread scans one (batch, channel, segment), and
+    each segment after the first costs a fix-up pass as long as the scan
+    (its entering state's share of y: one exp per state and step).  So
+    S stays whole from ``_SCAN_WHOLE`` (b, channel) pairs on, where the
+    card is already busy (jamba at B=2: 1.22-1.36 ms whole, 1.72-2.03 ms
+    in 2-16 segments), and is cut into ``_SCAN_THREADS / (B * di)``
+    segments below it, where one thread per channel leaves the card
+    waiting (B=1: 1.35 ms whole, 1.01-1.11 ms in 8-9 segments; NVIDIA
+    H100 80GB HBM3, 700 W)."""
+    if B * di >= _SCAN_WHOLE:
+        segments = 1
+    else:
+        segments = -(-_SCAN_THREADS // max(1, B * di))
+    tiles = -(-S // _SCAN_TILE)
+    return _SCAN_TILE * max(1, -(-tiles // segments))
 
 
 def mamba_scan(xc: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
@@ -416,9 +451,16 @@ def mamba_scan(xc: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
     from repro_torch.kernels.build import library
     y = torch.empty((B, S, di), dtype=xc.dtype, device=xc.device)
     types = sum(_is_bf16(t) << i for i, t in enumerate((xc, dt, bm, cm)))
+    seg_len = scan_segment_len(B, S, di)
+    segments = -(-S // seg_len)
+    padded = 8 if N <= 8 else 16 if N <= 16 else 32
+    # h and sum(dt) at each segment's end, for the fix-up of the next ones
+    carry = torch.empty((B, segments, padded + 1, di), dtype=torch.float32,
+                        device=xc.device) if segments > 1 else None
     _raise_on(library().mamba_scan(
         xc.data_ptr(), dt.data_ptr(), bm.data_ptr(), cm.data_ptr(),
-        a.data_ptr(), y.data_ptr(), types, B, S, di, N, _stream(xc)), op)
+        a.data_ptr(), y.data_ptr(), 0 if carry is None else carry.data_ptr(),
+        types, B, S, di, N, seg_len, _stream(xc)), op)
     LAUNCHES[op] += 1
     return y
 
@@ -427,6 +469,22 @@ def mamba_scan(xc: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
 
 _MAX_DQK = 512           # the kernel keeps C[:, 32 columns] in shared memory
 _MAX_CHUNK = 128         # rows of the kernel's intra-chunk product
+
+
+def mlstm_route(dtypes: Sequence[torch.dtype], dqk: int, dv: int,
+                strides: Sequence[int], ptrs: Sequence[int]) -> str:
+    """mlstm_chunk's route: "wgmma" when q, k and v (``dtypes``) are all
+    bf16, dqk and dv are multiples of 16, the element strides of q, k, v
+    and o (the 12 (batch, head, step) strides passed to the kernel) are
+    multiples of 8 and their bases 16-byte aligned (what the TMA maps of
+    the two-phase tensor-core kernel can express); "simt" for everything
+    else (f32, whose 5e-4 gate leaves no room for bf16 operands, other
+    widths, odd strides).  The gates may be f32 or bf16 on either route."""
+    if all(dt == torch.bfloat16 for dt in dtypes) and dqk % 16 == 0 and \
+            dv % 16 == 0 and all(st % 8 == 0 for st in strides) and \
+            all(p % 16 == 0 for p in ptrs):
+        return "wgmma"
+    return "simt"
 
 
 def _check_mlstm(op: str, q, k, v, logi, logf, rank: int) -> None:
@@ -457,13 +515,33 @@ def _launch_mlstm(q, k, v, logi, logf, o, strides, B, H, S, chunk) -> None:
     if B * H > 65535:
         raise ValueError(f"{op}: {B * H} (batch, head) rows exceed the grid")
     from repro_torch.kernels.build import library
+    lib = library()
+    # (batch, head, step) strides of q, k, v, then the gates', then o's
+    tensor_strides = strides[:9] + strides[15:]
+    route = _pick(op, mlstm_route(
+        [q.dtype, k.dtype, v.dtype], dqk, dv, tensor_strides,
+        [t.data_ptr() for t in (q, k, v, o)]))
     st = (ctypes.c_longlong * 18)(*strides)
     types = sum(_is_bf16(t) << i for i, t in enumerate((q, k, v, logi, logf)))
-    _raise_on(library().mlstm_chunk(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), logi.data_ptr(),
-        logf.data_ptr(), o.data_ptr(), st, types, B, H, S, dqk, dv, chunk,
-        dqk ** -0.5, _stream(q)), op)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), logi.data_ptr(),
+            logf.data_ptr(), o.data_ptr(), st, types, B, H, S, dqk, dv,
+            chunk, dqk ** -0.5)
+    if route == "wgmma":
+        # the gate factors and the state entering every chunk (C in bf16,
+        # n in f32), carved by the kernel from one 1024-byte-aligned block
+        nbytes = lib.mlstm_chunk_wgmma_scratch(B, H, S, dqk, dv, chunk)
+        if nbytes < 0:
+            raise ValueError(f"{op}: no scratch for B={B} H={H} S={S} "
+                             f"dqk={dqk} dv={dv} chunk={chunk}")
+        scratch = torch.empty(nbytes + 1024, dtype=torch.uint8,
+                              device=q.device)
+        base = -scratch.data_ptr() % 1024 + scratch.data_ptr()
+        err = lib.mlstm_chunk_wgmma(*args, base, _stream(q))
+    else:
+        err = lib.mlstm_chunk(*args, _stream(q))
+    _raise_on(err, op)
     LAUNCHES[op] += 1
+    MLSTM_ROUTES[f"{op}.{route}"] += 1
 
 
 def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -473,7 +551,9 @@ def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logi/logf (BH,S,1) -> h (BH,S,dv) in q's dtype, the stabilized mLSTM
     from a zero state.  S must be a multiple of min(block_s, S), as the
     JAX wrapper asserts; the kernel runs chunks of min(block_s, S, 128)
-    steps (the chunk size changes only the rounding)."""
+    steps (the chunk size changes only the rounding).  On the card
+    ``mlstm_route`` picks the kernel: the two-phase tensor-core one for
+    bf16 q/k/v, the CUDA-core one otherwise."""
     op = "mlstm_chunk"
     _check_mlstm(op, q, k, v, logi, logf, 3)
     BH, S, _ = q.shape

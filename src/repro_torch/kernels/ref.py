@@ -4,8 +4,11 @@
 and the port of the JAX package's ``kernels/ref.py`` oracle of the same
 name: f32 throughout, masked scores -1e30, output in q's dtype.
 ``moe_gmm_ref`` (csrc/moe_gmm.cu), ``mamba_scan_ref``
-(csrc/mamba_scan.cu) and ``mlstm_ref`` (csrc/mlstm_chunk.cu) port the
-oracles of the same names: f32 math, output in the first input's dtype.
+(csrc/mamba_scan.cu) and ``mlstm_ref`` (csrc/mlstm_chunk.cu and
+csrc/mlstm_chunk_wgmma.cu) port the oracles of the same names: f32
+math, output in the first input's dtype.  ``mlstm_chunkwise_ref``
+mirrors the algorithm of csrc/mlstm_chunk_wgmma.cu step by step, bf16
+roundings included, for the tests.
 
 The campaign sweep's per-tick ops follow.
 
@@ -33,7 +36,7 @@ import torch
 
 __all__ = ["flash_attention_ref", "flash_attention_model_ref",
            "moe_gmm_ref", "mamba_scan_ref", "mlstm_ref",
-           "mlstm_model_ref",
+           "mlstm_model_ref", "mlstm_chunkwise_ref",
            "campaign_alloc_ref", "campaign_preempt_ref",
            "campaign_match_ref", "campaign_advance_ref",
            "campaign_bill_ref"]
@@ -146,6 +149,90 @@ def mlstm_model_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     h = mlstm_ref(rows(q, dqk), rows(k, dqk), rows(v, dv),
                   rows(logi[..., None], 1), rows(logf[..., None], 1))
     return h.reshape(B, H, S, dv).transpose(1, 2)
+
+
+def mlstm_chunkwise_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        logi: torch.Tensor, logf: torch.Tensor, *,
+                        chunk: int = 128) -> torch.Tensor:
+    """The two-phase algorithm of the tensor-core mLSTM kernel, in plain
+    PyTorch: q/k (BH,S,dqk), v (BH,S,dv), logi/logf (BH,S,1) -> h
+    (BH,S,dv) in q's dtype, from a zero state, any S (a ragged last
+    chunk is padded with zero steps).
+
+    1. the gate pass: chunk-local cumsum and prefix max, then the chain
+       of m0 (entering each chunk) and Mc (its end) over the chunks;
+    2. the states (C, n) entering every chunk, C <- exp(m0 - Mc) C +
+       (k w)^T v and n <- exp(m0 - Mc) n + sum_j k_j w_j;
+    3. every chunk's outputs from its entering state.
+
+    With bf16 q the kernel's roundings are applied where it rounds: k w
+    (the state update's operand), the masked scores S~ (the operand of
+    S~ v) and C entering each chunk (the operand of q C), each to bf16;
+    the gates, n, the denominator and every sum stay f32."""
+    f32 = torch.float32
+    BH, S, dqk = q.shape
+    dv = v.shape[2]
+    L = chunk
+    nc = -(-S // L)
+    pad = nc * L - S
+    scale = dqk ** -0.5
+    if q.dtype == torch.bfloat16:
+        def rnd(t):
+            return t.to(torch.bfloat16).to(f32)
+    else:
+        def rnd(t):
+            return t
+
+    def tiles(t):                       # (BH, S, d) -> (BH, nc, L, d)
+        t = torch.nn.functional.pad(t.to(f32), (0, 0, 0, pad))
+        return t.reshape(BH, nc, L, t.shape[-1])
+    qf, kf, vf = tiles(q), tiles(k), tiles(v)
+    li, lf = tiles(logi)[..., 0], tiles(logf)[..., 0]      # (BH, nc, L)
+    valid = (torch.arange(nc * L, device=q.device) < S).reshape(nc, L)
+    last = [min(L, S - c * L) - 1 for c in range(nc)]
+
+    # 1. the gate pass
+    F = torch.cumsum(lf, -1)
+    a = li - F
+    amax = torch.cummax(a, -1).values
+    m0 = torch.zeros((BH, nc), dtype=f32, device=q.device)
+    mc = torch.zeros((BH, nc), dtype=f32, device=q.device)
+    m = torch.zeros(BH, dtype=f32, device=q.device)
+    for c in range(nc):
+        m0[:, c] = m
+        mc[:, c] = torch.maximum(m, amax[:, c, last[c]])
+        m = F[:, c, last[c]] + mc[:, c]
+    M = torch.maximum(m0[..., None], amax)
+    w_state = torch.exp(m0[..., None] - M)
+    floor = torch.exp(-(F + M))
+    w_end = torch.where(valid, torch.exp(a - mc[..., None]), 0.0)
+    decay = torch.exp(m0 - mc)
+
+    # 2. the states entering every chunk
+    kw = kf * (w_end * scale)[..., None]
+    C = torch.zeros((BH, dqk, dv), dtype=f32, device=q.device)
+    n = torch.zeros((BH, dqk), dtype=f32, device=q.device)
+    c_in, n_in = [], []
+    for c in range(nc):
+        c_in.append(rnd(C))
+        n_in.append(n)
+        if c < nc - 1:
+            C = decay[:, c, None, None] * C + \
+                rnd(kw[:, c]).transpose(1, 2) @ vf[:, c]
+            n = decay[:, c, None] * n + kw[:, c].sum(1)
+    c_in, n_in = torch.stack(c_in, 1), torch.stack(n_in, 1)
+
+    # 3. every chunk's outputs
+    causal = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()
+    keep = causal & valid[:, None, :] & valid[:, :, None]  # (nc, L, L)
+    scores = (qf @ kf.transpose(-1, -2)) * scale
+    dmask = torch.exp(a[..., None, :] - M[..., :, None])
+    s_t = torch.where(keep, scores * dmask, 0.0)
+    qn = (qf * n_in[:, :, None, :]).sum(-1)
+    den = torch.maximum((s_t.sum(-1) + w_state * qn).abs(), floor)
+    num = w_state[..., None] * (qf @ c_in) + rnd(s_t) @ vf
+    h = (num / den[..., None]).reshape(BH, nc * L, dv)[:, :S]
+    return h.to(q.dtype)
 
 
 # -- campaign-sweep tick ops -----------------------------------------------
