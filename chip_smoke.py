@@ -23,7 +23,8 @@ Phases (any failure raises and exits non-zero with no result line):
              widths (torch.profiler kernel time over wall time);
   5. data    the data-plane golden spec at 64 seeds, the same checks as 3;
   6. flash   the flash attention kernel against its plain version at the
-             yi-9b shape (B=2, S=4096, H=32, Hkv=4, D=128, causal) and the
+             yi-9b shape (B=2, S=4096, H=32, Hkv=4, D=128, causal; and
+             B=1, the f32 forward's) and the
              edge shapes of tests/test_kernels.py, plus q_offset and
              kv_len cases, in f32 (2e-5) and bf16 (2e-2) elementwise and
              by the worst query row's relative error (1e-5 / 1e-2), on
@@ -33,14 +34,17 @@ Phases (any failure raises and exits non-zero with no result line):
              route the per-call time (CUDA events), device time
              (profiler), plain version's time,
              scaled_dot_product_attention's time (the library yardstick,
-             never called by the port) and the bound;
+             never called by the port), the bound, the share of the
+             bound and the ratio to SDPA;
   7. forward yi-9b at full width and depth (48 layers, random weights
              from the port's own init_params): forward_loss at B=2,
              S=4096 in bf16 and B=1, S=4096 in f32, each through the flash
              kernel (48 launches, all on the wgmma route in bf16 and on
              the simt route in f32) and through its plain version: finite
              loss within 2.0 of ln 64000, kernel vs plain within 1e-2
-             (bf16) / 1e-4 (f32) relative; tokens/s; a profiled forward;
+             (bf16) / 1e-4 (f32) relative; tokens/s; a profiled kernel
+             forward in each type (device ms per flash launch on each
+             route at the forward's own shape);
   8. serve   BatchServer(slots=4, max_len=128) on the same weights answers
              8 requests (prompts of 4-12 tokens, 16 new tokens each); every
              token below 64000; prefill logits == token-by-token decode
@@ -51,7 +55,9 @@ Phases (any failure raises and exits non-zero with no result line):
              bf16 (bf16 on both routes, as in 6): max |err| / max |plain|
              within 1e-5 (f32) / 1e-2 (bf16); per case and route the
              per-call, device, plain version's and torch.bmm's times (the
-             library yardstick, never called by the port) and the bound;
+             library yardstick, never called by the port), the bound, the
+             share of the bound and the ratio to torch.bmm; on the simt
+             route the row tile ``ops.gmm_row_tile`` picked;
  10. scan    the mamba_scan kernel against its plain version at jamba's
              shapes (B=2 with the model's bf16/f32 stream mix, B=1 in
              f32; S=4096, di=8192, N=16) and the edge shapes of
@@ -68,7 +74,8 @@ Phases (any failure raises and exits non-zero with no result line):
              first two on the wgmma route in bf16) and
              through the reference path: finite loss, kernels vs reference
              within 1e-2 (bf16) / 1e-4 (f32) relative; tokens/s, peak
-             memory, a profiled bf16 forward on each path;
+             memory, a profiled bf16 forward on each path and a profiled
+             f32 forward through the kernels (the CUDA-core routes);
  12. served  BatchServer(slots=4, max_len=128) on the jamba weights, f32,
              8 requests as in 8; the prefill-vs-decode check on a prompt
              whose MoE layers drop no token (drops counted, asserted 0);
@@ -100,7 +107,10 @@ Phases (any failure raises and exits non-zero with no result line):
              8 requests as in 8, and the prefill-vs-decode check;
  16. report  a ``{"kernels": [...]}`` line (each entry with its route,
              "cuda", and "cuda_route", the kernel's route on the main path:
-             "wgmma" or "simt"), the nvidia-smi line, and last
+             "wgmma" or "simt"; flash attention and moe_gmm have one entry
+             per route, the simt one, "flash_attention.simt" and
+             "moe_gmm.simt", at the f32 forwards' shapes and launches),
+             the nvidia-smi line, and last
              ``{"ok": true, "device": {...}}``.
 
 Device times are per wrapper call: a call that launches several CUDA
@@ -472,6 +482,8 @@ FLASH_ROW_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # Hkv, D, causal; kernel layout: BHG, BKV, Sq, Skv, D and the keywords
 FLASH_CASES = [
     ("yi-9b", True, (2, 4096, 4096, 32, 4, 128, True), {}),
+    # the f32 forward's own shape (phase 7 runs f32 at B=1)
+    ("yi-9b-b1", True, (1, 4096, 4096, 32, 4, 128, True), {}),
     ("d64-gqa", True, (2, 256, 256, 4, 2, 64, True), {}),
     ("mqa-noncausal", True, (1, 128, 384, 2, 1, 128, False), {}),
     ("d80-ragged", True, (2, 96, 160, 2, 2, 80, True), {}),
@@ -493,10 +505,12 @@ def valid_pairs(Sq: int, Skv: int, causal: bool, kv_len=None,
     return int(np.clip(q_offset + i + 1, 0, lim).sum())
 
 
-# the profiler's kernel name of each route
+# the profiler's kernel name of each route (the CUDA-core kernels are
+# templates: flash_attention_kernel<float, 128>, moe_gmm_kernel<float,
+# float, 128>)
 FLASH_KERNEL = {"wgmma": "flash_attention_kernel_wgmma",
                 "simt": "flash_attention_kernel<"}
-GMM_KERNEL = {"wgmma": "moe_gmm_kernel_wgmma", "simt": "moe_gmm_kernel("}
+GMM_KERNEL = {"wgmma": "moe_gmm_kernel_wgmma", "simt": "moe_gmm_kernel<"}
 
 
 def worst_row_err(got, want) -> float:
@@ -616,7 +630,8 @@ def check_flash(dev) -> dict:
                     f"({flops / 1e9:.2f} GFLOP, bytes term "
                     f"{res['bound_bytes_ms']:.4f} ms); kernel at "
                     f"{flops / res['ms'] / 1e9:.2f} TFLOP/s, "
-                    f"{100 * b / res['ms']:.1f}% of the bound")
+                    f"{100 * b / res['ms']:.1f}% of the bound, "
+                    f"{res['ms'] / library_ms:.3f}x sdpa")
             del want
             torch.cuda.empty_cache()
     return out
@@ -683,14 +698,18 @@ def forward_phase(params, cfg, dev) -> dict:
                 f"flash launches {launches['flash_attention']} "
                 f"({ {k: n for k, n in routes.items() if n} }), peak "
                 f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
-            if label == "kernel" and dtype == torch.bfloat16:
+            if label == "kernel":
                 # device time per launch inside the forward: the main
-                # path's own shape and dtype
-                out["launches"] = launches["flash_attention"]
-                out["flash_device_ms"] = profile_forward(
-                    lambda: forward_loss(params, cfg, batch,
-                                         compute_dtype=dtype, flash_fn=fn),
-                    secs[label])["flash_attention_kernel"]
+                # path's own shape and dtype (bf16 B=2 on the wgmma route,
+                # f32 B=1 on the simt route)
+                out[route] = {
+                    "launches": launches["flash_attention"],
+                    "device_ms": profile_forward(
+                        lambda: forward_loss(params, cfg, batch,
+                                             compute_dtype=dtype,
+                                             flash_fn=fn),
+                        secs[label], tag=f"forward {str(dtype)[6:]}")[
+                            "flash_attention_kernel"]}
         d = abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"])
         if d > rel:
             fail(f"forward {dtype}: kernel loss {losses['kernel']} vs plain "
@@ -819,7 +838,8 @@ def serve_phase(params, cfg, dev, tag: str = "serve") -> None:
 
 KERNEL_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # (label, E, C, D, F): jamba-v0.1-52b's expert products at B*S = 8192
-# (C = 1280) and 4096 (C = 640) tokens, the decode capacity, unaligned
+# (C = 1280) and 4096 (C = 640) tokens, the decode capacity (on the simt
+# route the 16-row tile of ops.gmm_row_tile; the others take 128), unaligned
 GMM_CASES = [("jamba-up-c1280", 16, 1280, 4096, 14336),
              ("jamba-down-c1280", 16, 1280, 14336, 4096),
              ("jamba-up-c640", 16, 640, 4096, 14336),
@@ -919,13 +939,16 @@ def check_gmm(dev) -> dict:
                 out[(label, dtype, route)] = res
                 dev_ms = "not measured" if res["device_ms"] is None \
                     else f"{res['device_ms']:.4f} ms"
+                tile = f", row tile {ops.gmm_row_tile(C)}" \
+                    if route == "simt" else ""
                 log(f"[gmm] {label} {str(dtype)[6:]} x({E},{C},{D}) w({E},"
-                    f"{D},{F}): {route} route, max err / max |plain| "
+                    f"{D},{F}): {route} route{tile}, max err / max |plain| "
                     f"{err:.3g} (tol {tol}); kernel {res['ms']:.4f} ms "
                     f"(device {dev_ms}), plain {plain_ms:.4f} ms, bmm "
                     f"{library_ms:.4f} ms; bound {b:.4f} ms by {how}; "
                     f"kernel at {flops / res['ms'] / 1e9:.2f} TFLOP/s, "
-                    f"{100 * b / res['ms']:.1f}% of the bound")
+                    f"{100 * b / res['ms']:.1f}% of the bound, "
+                    f"{res['ms'] / library_ms:.3f}x bmm")
             del x, w, want
             torch.cuda.empty_cache()
     return out
@@ -1063,18 +1086,20 @@ def hybrid_forward_phase(params, cfg, dev) -> dict:
                 f"{ {k: launches[k] for k in kernel_launches} } "
                 f"({ {k: n for k, n in routes.items() if n} }), peak "
                 f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
-            if dtype != torch.bfloat16:
+            if dtype != torch.bfloat16 and label != "kernels":
                 continue
             # where each path's time goes, on the main path's own shapes
+            # (in f32 the kernels' path only: the CUDA-core routes)
             prof = profile_forward(
                 lambda: forward_loss(params, cfg, batch,
                                      compute_dtype=dtype, **kw),
-                secs[label], tag=f"hybrid {label}",
+                secs[label], tag=f"hybrid {label} {str(dtype)[6:]}",
                 kernels=("flash_attention_kernel", "moe_gmm_kernel",
                          "mamba_scan_kernel"))
             if label == "kernels":
-                out["launches"] = {k: launches[k] for k in kernel_launches}
-                out["device_ms"] = prof
+                out[route] = {
+                    "launches": {k: launches[k] for k in kernel_launches},
+                    "device_ms": prof}
         d = abs(losses["kernels"] - losses["reference"]) \
             / abs(losses["reference"])
         if d > rel:
@@ -1407,16 +1432,24 @@ def main() -> int:
     serve_phase(params, cfg, dev, tag="xserved")
     log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
 
+    # the main path's own shapes: the bf16 forwards' (B=2: yi-9b's
+    # attention, jamba's up product and scan) on the wgmma routes, the f32
+    # forwards' (B=1: yi-9b's attention, jamba's up product at C=640) on
+    # the CUDA-core routes; where a window came back empty, the device
+    # time comes from the forward's own profile
     yi = flash[("yi-9b", torch.bfloat16, "wgmma")]
-    if yi["device_ms"] is None:          # the forward's own profile
-        yi["device_ms"] = fwd["flash_device_ms"]
-    # the main path's own shapes: the bf16 forward's up product and scan
+    yi_f32 = flash[("yi-9b-b1", torch.float32, "simt")]
     main_gmm = gmm[("jamba-up-c1280", torch.bfloat16, "wgmma")]
+    gmm_f32 = gmm[("jamba-up-c640", torch.float32, "simt")]
     main_scan = scan[("jamba-b2-model", torch.bfloat16)]
-    for res, name in ((main_gmm, "moe_gmm_kernel"),
-                      (main_scan, "mamba_scan_kernel")):
+    for res, prof in ((yi, fwd["wgmma"]["device_ms"]),
+                      (yi_f32, fwd["simt"]["device_ms"]),
+                      (main_gmm, hybrid["wgmma"]["device_ms"]["moe_gmm_kernel"]),
+                      (gmm_f32, hybrid["simt"]["device_ms"]["moe_gmm_kernel"]),
+                      (main_scan,
+                       hybrid["wgmma"]["device_ms"]["mamba_scan_kernel"])):
         if res["device_ms"] is None:
-            res["device_ms"] = hybrid["device_ms"][name]
+            res["device_ms"] = prof
     main_mlstm = mlstm[("xlstm-b2-model", torch.bfloat16, "wgmma")]
     if main_mlstm["device_ms"] is None:
         main_mlstm["device_ms"] = xlstm["device_ms"]
@@ -1429,14 +1462,23 @@ def main() -> int:
          **kernels[name]} for name in REPLACES] + [
         {"name": "flash_attention", "route": "cuda", "cuda_route": "wgmma",
          "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
-         "launches": fwd["launches"], **{key: yi[key] for key in keys}},
+         "launches": fwd["wgmma"]["launches"],
+         **{key: yi[key] for key in keys}},
+        {"name": "flash_attention.simt", "route": "cuda",
+         "cuda_route": "simt", "source": FLASH_SOURCE,
+         "replaces": FLASH_REPLACES, "launches": fwd["simt"]["launches"],
+         **{key: yi_f32[key] for key in keys}},
         {"name": "moe_gmm", "route": "cuda", "cuda_route": "wgmma",
          "source": GMM_SOURCE, "replaces": GMM_REPLACES,
-         "launches": hybrid["launches"]["moe_gmm"],
+         "launches": hybrid["wgmma"]["launches"]["moe_gmm"],
          **{key: main_gmm[key] for key in keys}},
+        {"name": "moe_gmm.simt", "route": "cuda", "cuda_route": "simt",
+         "source": GMM_SOURCE, "replaces": GMM_REPLACES,
+         "launches": hybrid["simt"]["launches"]["moe_gmm"],
+         **{key: gmm_f32[key] for key in keys}},
         {"name": "mamba_scan", "route": "cuda", "cuda_route": "simt",
          "source": SCAN_SOURCE, "replaces": SCAN_REPLACES,
-         "launches": hybrid["launches"]["mamba_scan"],
+         "launches": hybrid["wgmma"]["launches"]["mamba_scan"],
          **{key: main_scan[key] for key in keys}},
         {"name": "mlstm_chunk", "route": "cuda", "cuda_route": "wgmma",
          "source": MLSTM_SOURCE, "replaces": MLSTM_REPLACES,

@@ -34,8 +34,8 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (_CSRC / "campaign_sweep.cu", _CSRC / "flash_attention.cu",
            _CSRC / "moe_gmm.cu", _CSRC / "mamba_scan.cu",
            _CSRC / "mlstm_chunk.cu", _CSRC / "mlstm_chunk_wgmma.cu")
-# included by the tensor-core kernels (flash_attention.cu, moe_gmm.cu,
-# mlstm_chunk_wgmma.cu)
+# included by flash_attention.cu, moe_gmm.cu, mamba_scan.cu and
+# mlstm_chunk_wgmma.cu
 HEADERS = (_CSRC / "hopper.cuh",)
 # IEEE division and square root, no fast math: the allocator's floors
 # depend on every f32 operation rounding on its own
@@ -119,8 +119,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # the same without the type flag, bf16 only (the tensor-core route)
     lib.flash_attention_wgmma.argtypes = [p, p, p, p, p, *[i] * 9,
                                           ctypes.c_float, p]
-    # x, w, o, x_bf16, w_bf16, E, C, D, F, stream
-    lib.moe_gmm.argtypes = [p, p, p, *[i] * 6, p]
+    # x, w, o, x_bf16, w_bf16, E, C, D, F, row_tile, stream
+    lib.moe_gmm.argtypes = [p, p, p, *[i] * 7, p]
     # x, w, o, E, C, D, F, stream (bf16, the tensor-core route)
     lib.moe_gmm_wgmma.argtypes = [p, p, p, *[i] * 4, p]
     # xc, dt, bm, cm, a, y, carry, types, B, S, di, N, seg_len, stream

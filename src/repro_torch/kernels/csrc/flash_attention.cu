@@ -23,7 +23,7 @@
 // Bound on an H100: operations.  At the yi-9b shape (B=2, H=32, S=4096,
 // D=128, causal) the work is 2 * 2 * B*H*Sq*Skv*D / 2 = 0.27 TFLOP
 // against 0.13 GB of q, k, v and o: 0.28 ms at the 989 TFLOP/s bf16
-// tensor-core rate.
+// tensor-core rate, 4.1 ms at the 67 TFLOP/s of the CUDA cores in f32.
 //
 // Two routes, chosen by the wrapper (kernels/ops.py `flash_route`):
 //
@@ -34,55 +34,59 @@
 // * `flash_attention_kernel` (everything else: f32, whose 2e-5 gate is
 //   beyond bf16 or TF32 tensor cores, other head dims, odd strides): the
 //   products on the CUDA cores in f32.  Its floor is the 67 TFLOP/s f32
-//   rate and its inner loops are bound by shared-memory loads (12 per 32
-//   FMAs).
+//   rate.
 //
-// The CUDA-core design: one block of 128 threads per (batch*head, 64-query
-// tile).  The TPU kernel carried (acc, m, l) in VMEM scratch across a
-// sequential KV grid axis; here the block loops over 64-key tiles itself
-// and keeps the state in registers.  Head dims up to 256 are padded to
-// 64 / 128 / 256 in shared memory with zeros (which add nothing to a dot
-// product).  A thread owns 4 query rows x 8 keys of the score tile and
-// the same 4 rows x D/8 columns of the accumulator; the 8 lanes that
-// share rows sit in one warp, so row max and row sum are three
-// xor-shuffles, and the probability tile goes through shared memory with
-// only a warp barrier between its writers and readers.  Key tiles wholly
-// above the diagonal (causal) or at or past kv_len are never loaded:
-// their probabilities are exactly 0 for every row that has a valid key.
+// The CUDA-core design: one block of 256 threads (8 warps, the SM's
+// only block: the tiles take ~210 KB of shared memory) per (128-query
+// tile, batch*head); 64 queries at D = 256, so that the accumulator still
+// fits in registers.  The TPU kernel carried (acc, m, l) in VMEM scratch
+// across a sequential KV grid axis; here the block loops over 128-key
+// tiles itself and keeps the state in registers.  The threads form a
+// 16 x 16 grid, (tq, tk), and a warp holds two tq rows of 16 tk lanes:
+// a thread owns query rows tq + 16 i, keys tk + 16 j (j < 8) of the score
+// tile and output columns tk * 4 + 64 c .. + 3 of the accumulator, so a
+// row's max and sum are four xor-shuffles inside a warp.  Every tile in
+// shared memory is f32 and row-major with padded rows, and every shared
+// load is a float4 along the reduction axis: q.k^T takes 8 k and 8 q
+// float4s for 256 FMAs (8 queries x 8 keys x 4 dims), p.v 8 p and 8 v
+// float4s for 256 FMAs (8 queries x 8 columns x 4 keys), 16 FMAs a
+// load; the paddings keep each load at the wavefronts its distinct bytes
+// need.  q is loaded once, scaled in f32 as
+// the reference scales it.  k and v stream through a ring of four 18 KB
+// stages in chunks of 32 dims of k (128 keys each) and 4096 / D keys of
+// v: a tile is ceil(D / 32) k chunks, then D / 32 v chunks, and three
+// chunks are in flight under the current one's FMAs (cp.async for f32
+// rows that are 16-byte aligned; loads through registers, which widen
+// bf16, otherwise).  One __syncthreads a chunk orders the ring; the
+// probability tile (each warp writes and reads only its own rows) needs
+// no barrier of its own.  Only key tiles that cross kv_len, Skv or the
+// diagonal pay for masks; tiles wholly above the diagonal or at or past
+// kv_len are never loaded (their probabilities are exactly 0 for every
+// row that has a valid key).  The grid runs as the tensor-core route's:
+// the head is the fastest axis, so the G query heads of a kv head share
+// its tiles in L2, and causal query tiles run heavy-first.  Numerics:
+// masked scores -1e30 (keys past Skv -inf), expf of the score less the
+// running max, f32 max, sum and accumulator, the output divided by
+// max(l, 1e-30); `ref.flash_attention_tiled_ref` mirrors them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <type_traits>
+
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;             // query rows per block
-constexpr int kBK = 64;             // keys per tile
-constexpr int kFlashThreads = 128;
-constexpr int kRows = 4;            // query rows per thread (16 row groups)
-constexpr int kCols = 8;            // key / output-column lanes per row group
+constexpr int kFlashThreads = 256;
+constexpr int kBK = 128;            // keys per tile
+constexpr int kKD = 32;             // dims of a k chunk
+constexpr int kKP = kKD + 4;        // row pitch of a k chunk (128 keys)
+constexpr int kPP = kBK + 16;       // row pitch of the probability tile
+constexpr int kStages = 4;          // chunks in the ring
+constexpr int kStageFloats = kBK * kKP;   // the larger of a k and a v chunk
 constexpr float kMaskedScore = -1e30f;
-
-static_assert(kBQ == kRows * (kFlashThreads / kCols), "row tiling");
-static_assert(kBK % kCols == 0, "key tiling");
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's cast
-}
 
 // element strides of the (batch, seq, head) axes of q, k, v and o
 struct FlashStrides {
@@ -90,163 +94,284 @@ struct FlashStrides {
 };
 
 template <int DMAX>
-constexpr size_t flash_smem_bytes() {
-  // q and k rows padded by one float against bank conflicts
-  return sizeof(float) * (kBQ * (DMAX + 1) + kBK * (DMAX + 1) +
-                          kBK * DMAX + kBQ * (kBK + 1));
+struct SimtTiles {
+  static constexpr int kBQ = DMAX <= 128 ? 128 : 64;  // query rows a block
+  static constexpr int kTQ = kBQ / 16;                 // rows a thread
+  static constexpr int kTC = DMAX / 64;                // float4 columns a thread
+  static constexpr int kQP = DMAX + 4;                 // row pitch of q and v
+  static constexpr int kVRows = 4096 / DMAX;           // keys of a v chunk
+  static constexpr int kVChunks = kBK / kVRows;
+  static constexpr size_t kBytes =
+      sizeof(float) * (kBQ * kQP + kBQ * kPP + kStages * kStageFloats);
+  static_assert(kVRows * kQP <= kStageFloats, "a v chunk fits a stage");
+};
+
+__device__ __forceinline__ float lane4(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// 4 consecutive elements as f32 (16-byte aligned f32, 8-byte aligned bf16)
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// elements [k, k + 4) of a row of n as f32, zeros past n; one load where
+// `vec` (n a multiple of 4 and p aligned).  (hopper.cuh's
+// widen4(fetch_raw4(...)) computes the same; at this kernel's 255
+// registers its bf16 route compiled slower through that form.)
+template <typename T>
+__device__ __forceinline__ float4 fetch4(const T* p, int k, int n, bool vec) {
+  if (vec) return k < n ? load4(p) : make_float4(0.f, 0.f, 0.f, 0.f);
+  float v[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = k + i < n ? to_f32(p[i]) : 0.0f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// 4 elements of a row (of D) at dim d into shared memory as f32; zeros
+// where the row is not `live` or past D.  cp.async where `vec` for f32;
+// loads through registers (widening bf16) otherwise.
+template <typename T>
+__device__ __forceinline__ void stage4(float* dst, const T* src, bool live,
+                                       int d, int D, bool vec) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (vec) {
+      hopper::cp16(dst, src, live && d < D ? 16 : 0);
+      return;
+    }
+  }
+  *reinterpret_cast<float4*>(dst) =
+      live ? fetch4(src, d, D, vec) : make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
 template <typename T, int DMAX>
-__global__ void __launch_bounds__(kFlashThreads)
+__global__ void __launch_bounds__(kFlashThreads, 1)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ o,
                            FlashStrides st, int H, int G, int Sq, int Skv,
                            int D, int causal, int kv_len, int q_offset,
-                           float scale) {
-  constexpr int QS = DMAX + 1;
-  constexpr int KS = DMAX + 1;
-  constexpr int VS = DMAX;
-  constexpr int PS = kBK + 1;
-  constexpr int kDC = DMAX / kCols;  // accumulator columns per thread
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* ks = qs + kBQ * QS;
-  float* vs = ks + kBK * KS;
-  float* ps = vs + kBK * VS;
+                           float scale, bool vec) {
+  using L = SimtTiles<DMAX>;
+  constexpr int kBQ = L::kBQ, kTQ = L::kTQ, kTC = L::kTC, kQP = L::kQP;
+  constexpr int kVRows = L::kVRows;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                  // [kBQ][kQP], scaled
+  float* ps = qs + kBQ * kQP;        // [kBQ][kPP], this tile's probabilities
+  float* ring = ps + kBQ * kPP;      // kStages x [128][kKP] or [kVRows][kQP]
 
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh % H;
+  const int h = blockIdx.x % H;
+  const int b = blockIdx.x / H;
   const int hk = h / G;
-  const int q0 = blockIdx.y * kBQ;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;   // heavy first
   const int tid = threadIdx.x;
-  const int tx = tid % kCols;
-  const int row0 = (tid / kCols) * kRows;
+  const int lane = tid % 32;
+  const int tq = 2 * (tid / 32) + lane / 16;
+  const int tk = lane % 16;
 
   const T* qb = q + b * st.q[0] + h * st.q[2];
   const T* kb = k + b * st.k[0] + hk * st.k[2];
   const T* vb = v + b * st.v[0] + hk * st.v[2];
   T* ob = o + b * st.o[0] + h * st.o[2];
 
-  // the q tile, scaled in f32 as the reference scales it; zero past Sq, D
-  for (int i = tid; i < kBQ * DMAX; i += kFlashThreads) {
-    const int r = i / DMAX;
-    const int d = i % DMAX;
-    float x = 0.0f;
-    if (q0 + r < Sq && d < D) x = to_f32(qb[(q0 + r) * st.q[1] + d]) * scale;
-    qs[r * QS + d] = x;
+  // the keys this tile can see: below kv_len and, causal, at or below the
+  // last real query's position
+  const int kv_lim = min(Skv, kv_len);
+  int kv_end = kv_lim;
+  if (causal) kv_end = min(kv_end, q_offset + min(q0 + kBQ, Sq));
+  const int n_tiles = kv_end > 0 ? (kv_end + kBK - 1) / kBK : 0;
+  const int n_k = (D + kKD - 1) / kKD;      // k chunks a tile: dims < D
+  const int per_tile = n_k + L::kVChunks;
+  const int total = n_tiles * per_tile;
+
+  // chunk g of the stream into its stage, then one commit (empty past
+  // the last tile, so the count of groups stays one a chunk)
+  auto issue = [&](int g) {
+    const int t = g / per_tile, c = g % per_tile;
+    float* dst = ring + (g % kStages) * kStageFloats;
+    if (t < n_tiles) {
+      if (c < n_k) {       // keys t*128 .. +127, dims 32c .. 32c + 31
+        for (int p = tid; p < kBK * kKD / 4; p += kFlashThreads) {
+          const int r = p / (kKD / 4), d = c * kKD + (p % (kKD / 4)) * 4;
+          const int key = t * kBK + r;
+          stage4(dst + r * kKP + (p % (kKD / 4)) * 4,
+                 kb + min(key, Skv - 1) * st.k[1] + d, key < Skv, d, D, vec);
+        }
+      } else {             // keys of v chunk c - n_k, every dim
+        const int j0 = t * kBK + (c - n_k) * kVRows;
+        for (int p = tid; p < kVRows * DMAX / 4; p += kFlashThreads) {
+          const int r = p / (DMAX / 4), d = (p % (DMAX / 4)) * 4;
+          const int key = j0 + r;
+          stage4(dst + r * kQP + d, vb + min(key, Skv - 1) * st.v[1] + d,
+                 key < Skv, d, D, vec);
+        }
+      }
+    }
+    hopper::cp_commit();
+  };
+
+#pragma unroll 1
+  for (int g = 0; g < kStages - 1; ++g) issue(g);
+  // the q tile under those copies, scaled in f32; zero past Sq and D
+  for (int p = tid; p < kBQ * DMAX / 4; p += kFlashThreads) {
+    const int r = p / (DMAX / 4), d = (p % (DMAX / 4)) * 4;
+    const bool live = q0 + r < Sq;
+    float4 x = live ? fetch4(qb + min(q0 + r, Sq - 1) * st.q[1] + d,
+                                     d, D, vec)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+    x.x *= scale;
+    x.y *= scale;
+    x.z *= scale;
+    x.w *= scale;
+    *reinterpret_cast<float4*>(qs + r * kQP + d) = x;
   }
 
-  float m[kRows], l[kRows], acc[kRows][kDC];
+  float m[kTQ], l[kTQ], acc[kTQ][4 * kTC], sc[kTQ][8];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
+  for (int i = 0; i < kTQ; ++i) {
     m[i] = kMaskedScore;
     l[i] = 0.0f;
 #pragma unroll
-    for (int c = 0; c < kDC; ++c) acc[i][c] = 0.0f;
+    for (int c = 0; c < 4 * kTC; ++c) acc[i][c] = 0.0f;
   }
 
-  // the keys this tile can see: below kv_len and, causal, at or below the
-  // last real query's position
-  int kv_end = min(Skv, kv_len);
-  if (causal) kv_end = min(kv_end, q_offset + min(q0 + kBQ, Sq));
-  const int n_tiles = kv_end > 0 ? (kv_end + kBK - 1) / kBK : 0;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBK;
-    __syncthreads();  // the last tile's readers are done
-    for (int i = tid; i < kBK * DMAX; i += kFlashThreads) {
-      const int r = i / DMAX;
-      const int d = i % DMAX;
-      float kx = 0.0f, vx = 0.0f;
-      if (k0 + r < Skv && d < D) {
-        kx = to_f32(kb[(k0 + r) * st.k[1] + d]);
-        vx = to_f32(vb[(k0 + r) * st.v[1] + d]);
+#pragma unroll 1
+  for (int g = 0; g < total; ++g) {
+    hopper::cp_wait<kStages - 2>();   // this thread's copies of chunk g
+    __syncthreads();                  // everyone's; chunk g - 1 is free
+    issue(g + kStages - 1);
+    const float* cur = ring + (g % kStages) * kStageFloats;
+    const int t = g / per_tile, c = g % per_tile;
+    if (c < n_k) {
+      // sc += q . k^T over dims 32c .. 32c + 31
+      if (c == 0) {
+#pragma unroll
+        for (int i = 0; i < kTQ; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) sc[i][j] = 0.0f;
       }
-      ks[r * KS + d] = kx;
-      vs[r * VS + d] = vx;
-    }
-    __syncthreads();
-
-    // scores: rows row0.., keys tx + j * kCols
-    float s[kRows][kCols];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i)
+      for (int dd = 0; dd < kKD; dd += 4) {
+        float4 kf[8];
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = 0.0f;
+        for (int j = 0; j < 8; ++j)
+          kf[j] = *reinterpret_cast<const float4*>(cur + (tk + 16 * j) * kKP +
+                                                   dd);
+#pragma unroll
+        for (int i = 0; i < kTQ; ++i) {
+          const float4 qf = *reinterpret_cast<const float4*>(
+              qs + (tq + 16 * i) * kQP + c * kKD + dd);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            sc[i][j] = fmaf(qf.x, kf[j].x, sc[i][j]);
+            sc[i][j] = fmaf(qf.y, kf[j].y, sc[i][j]);
+            sc[i][j] = fmaf(qf.z, kf[j].z, sc[i][j]);
+            sc[i][j] = fmaf(qf.w, kf[j].w, sc[i][j]);
+          }
+        }
+      }
+      if (c == n_k - 1) {
+        // mask (edge tiles only), then the online-softmax update of each
+        // row; the probabilities go to this warp's rows of ps
+        const int k0 = t * kBK;
+        const bool edge =
+            k0 + kBK > kv_lim || (causal && k0 + kBK - 1 > q_offset + q0);
+#pragma unroll
+        for (int i = 0; i < kTQ; ++i) {
+          if (edge) {
+            const int qpos = q_offset + q0 + tq + 16 * i;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const int kpos = k0 + tk + 16 * j;
+              if (kpos >= Skv)
+                sc[i][j] = -CUDART_INF_F;   // no such key: weight exactly 0
+              else if (kpos >= kv_len || (causal && qpos < kpos))
+                sc[i][j] = kMaskedScore;
+            }
+          }
+          float mx = sc[i][0];
+#pragma unroll
+          for (int j = 1; j < 8; ++j) mx = fmaxf(mx, sc[i][j]);
+#pragma unroll
+          for (int off = 1; off < 16; off <<= 1)
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+          const float m_new = fmaxf(m[i], mx);
+          const float alpha = expf(m[i] - m_new);
+          float rs = 0.0f;
+          float* prow = ps + (tq + 16 * i) * kPP + tk;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float pj = expf(sc[i][j] - m_new);
+            prow[16 * j] = pj;
+            rs += pj;
+          }
+#pragma unroll
+          for (int off = 1; off < 16; off <<= 1)
+            rs += __shfl_xor_sync(0xffffffffu, rs, off);
+          l[i] = alpha * l[i] + rs;
+          m[i] = m_new;
+#pragma unroll
+          for (int cc = 0; cc < 4 * kTC; ++cc) acc[i][cc] *= alpha;
+        }
+      }
+    } else {
+      // acc += p . v over the chunk's kVRows keys
+      const int j0 = (c - n_k) * kVRows;
 #pragma unroll 8
-    for (int d = 0; d < DMAX; ++d) {
-      float qv[kRows], kv[kCols];
+      for (int jj = 0; jj < kVRows; jj += 4) {
+        float4 pf[kTQ];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) qv[i] = qs[(row0 + i) * QS + d];
+        for (int i = 0; i < kTQ; ++i)
+          pf[i] = *reinterpret_cast<const float4*>(ps + (tq + 16 * i) * kPP +
+                                                   j0 + jj);
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) kv[j] = ks[(tx + j * kCols) * KS + d];
+        for (int e = 0; e < 4; ++e) {
+          float4 vf[kTC];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i)
+          for (int cc = 0; cc < kTC; ++cc)
+            vf[cc] = *reinterpret_cast<const float4*>(
+                cur + (jj + e) * kQP + 64 * cc + tk * 4);
 #pragma unroll
-        for (int j = 0; j < kCols; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-    // mask, then the online-softmax update of each row
+          for (int i = 0; i < kTQ; ++i) {
+            const float pe = lane4(pf[i], e);
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int qpos = q_offset + q0 + row0 + i;
-      float mx = -CUDART_INF_F;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int kpos = k0 + tx + j * kCols;
-        if (kpos >= Skv)
-          s[i][j] = -CUDART_INF_F;  // no such key: weight exactly 0
-        else if (kpos >= kv_len || (causal && qpos < kpos))
-          s[i][j] = kMaskedScore;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 1; off < kCols; off <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.0f;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        ps[(row0 + i) * PS + tx + j * kCols] = p;
-        rs += p;
-      }
-#pragma unroll
-      for (int off = 1; off < kCols; off <<= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = alpha * l[i] + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < kDC; ++c) acc[i][c] *= alpha;
-    }
-    __syncwarp();  // a row's probabilities come from lanes of this warp
-
-    // acc += p . v over the tile's keys, in f32
-#pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      float pv[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) pv[i] = ps[(row0 + i) * PS + j];
-#pragma unroll
-      for (int c = 0; c < kDC; ++c) {
-        const float vv = vs[j * VS + tx + c * kCols];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
+            for (int cc = 0; cc < kTC; ++cc) {
+              acc[i][4 * cc] = fmaf(pe, vf[cc].x, acc[i][4 * cc]);
+              acc[i][4 * cc + 1] = fmaf(pe, vf[cc].y, acc[i][4 * cc + 1]);
+              acc[i][4 * cc + 2] = fmaf(pe, vf[cc].z, acc[i][4 * cc + 2]);
+              acc[i][4 * cc + 3] = fmaf(pe, vf[cc].w, acc[i][4 * cc + 3]);
+            }
+          }
+        }
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = q0 + row0 + i;
+  for (int i = 0; i < kTQ; ++i) {
+    const int r = q0 + tq + 16 * i;
     if (r >= Sq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
+    const float den = fmaxf(l[i], 1e-30f);
+    T* orow = ob + r * st.o[1];
 #pragma unroll
-    for (int c = 0; c < kDC; ++c) {
-      const int d = tx + c * kCols;
-      if (d < D) ob[r * st.o[1] + d] = from_f32<T>(acc[i][c] / denom);
+    for (int cc = 0; cc < kTC; ++cc) {
+      const int d = 64 * cc + tk * 4;
+      const float out[4] = {acc[i][4 * cc] / den, acc[i][4 * cc + 1] / den,
+                            acc[i][4 * cc + 2] / den,
+                            acc[i][4 * cc + 3] / den};
+      if (d < D) hopper::store4(orow + d, out, D - d, vec);
     }
   }
 }
@@ -255,21 +380,25 @@ template <typename T, int DMAX>
 int launch_flash(const void* q, const void* k, const void* v, void* o,
                  const FlashStrides& st, int B, int H, int G, int Sq,
                  int Skv, int D, int causal, int kv_len, int q_offset,
-                 float scale, cudaStream_t stream) {
-  constexpr size_t smem = flash_smem_bytes<DMAX>();
+                 float scale, bool vec, cudaStream_t stream) {
+  using L = SimtTiles<DMAX>;
   static bool configured = false;  // one flag per instantiation
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
         flash_attention_kernel<T, DMAX>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(L::kBytes));
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
-  flash_attention_kernel<T, DMAX><<<grid, kFlashThreads, smem, stream>>>(
+  const long long n_q = (Sq + L::kBQ - 1) / L::kBQ;
+  if (static_cast<long long>(B) * H > 0x7fffffffLL || n_q > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(B * H, static_cast<unsigned>(n_q));
+  flash_attention_kernel<T, DMAX><<<grid, kFlashThreads, L::kBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), st, H, G, Sq, Skv, D,
-      causal, kv_len, q_offset, scale);
+      causal, kv_len, q_offset, scale, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -278,14 +407,24 @@ int dispatch_dim(const void* q, const void* k, const void* v, void* o,
                  const FlashStrides& st, int B, int H, int G, int Sq,
                  int Skv, int D, int causal, int kv_len, int q_offset,
                  float scale, cudaStream_t stream) {
+  // 4 elements a load: D and every row stride multiples of 4, the bases
+  // aligned to 4 elements
+  constexpr int kAlign = 4 * sizeof(T);
+  bool vec = D % 4 == 0 &&
+             (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+              reinterpret_cast<uintptr_t>(v) |
+              reinterpret_cast<uintptr_t>(o)) % kAlign == 0;
+  for (int a = 0; a < 3; ++a)
+    vec = vec && st.q[a] % 4 == 0 && st.k[a] % 4 == 0 && st.v[a] % 4 == 0 &&
+          st.o[a] % 4 == 0;
   if (D <= 64)
     return launch_flash<T, 64>(q, k, v, o, st, B, H, G, Sq, Skv, D, causal,
-                               kv_len, q_offset, scale, stream);
+                               kv_len, q_offset, scale, vec, stream);
   if (D <= 128)
     return launch_flash<T, 128>(q, k, v, o, st, B, H, G, Sq, Skv, D, causal,
-                                kv_len, q_offset, scale, stream);
+                                kv_len, q_offset, scale, vec, stream);
   return launch_flash<T, 256>(q, k, v, o, st, B, H, G, Sq, Skv, D, causal,
-                              kv_len, q_offset, scale, stream);
+                              kv_len, q_offset, scale, vec, stream);
 }
 
 }  // namespace

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks of the tensor-core kernels: TMA tensor
 // maps and tile loads, mbarriers, and warpgroup matrix multiplies (wgmma)
-// with their shared-memory descriptors.  Included by flash_attention.cu,
-// moe_gmm.cu and mlstm_chunk_wgmma.cu; every function is inline, so the
-// translation units link into one library without clashing symbols.
+// with their shared-memory descriptors; and of the CUDA-core kernels:
+// cp.async copies and 4-element f32 / bf16 loads and stores.  Included by
+// flash_attention.cu, moe_gmm.cu, mamba_scan.cu and mlstm_chunk_wgmma.cu;
+// every function is inline, so the translation units link into one
+// library without clashing symbols.
 //
 // Conventions of these kernels:
 // - every tile is bf16, loaded by TMA with the 128-byte swizzle, as boxes
@@ -343,6 +345,91 @@ __device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "r"(accumulate), "n"(TRANS_B));
+}
+
+// -- device: the CUDA-core kernels' copies ------------------------------------
+
+// 16 bytes global -> shared, zero-filled where `bytes` < 16 (0: all zeros)
+__device__ __forceinline__ void cp16(void* dst, const void* src, int bytes) {
+  asm volatile(
+      "cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's cp.async groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 4 consecutive elements as loaded: a float4 of f32, a uint2 of bf16
+template <typename T> struct Raw4;
+template <> struct Raw4<float> { using type = float4; };
+template <> struct Raw4<__nv_bfloat16> { using type = uint2; };
+
+// elements [k, k + 4) of a row of n, as loaded, zeros past n; one load
+// where `vec` (n a multiple of 4, so the 4 lie all in or all out, and p
+// aligned: 16 bytes for f32, 8 for bf16)
+__device__ __forceinline__ float4 fetch_raw4(const float* p, int k, int n,
+                                             bool vec) {
+  if (vec)
+    return k < n ? *reinterpret_cast<const float4*>(p)
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+  float v[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = k + i < n ? p[i] : 0.0f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ uint2 fetch_raw4(const __nv_bfloat16* p, int k,
+                                            int n, bool vec) {
+  if (vec) return k < n ? *reinterpret_cast<const uint2*>(p) : make_uint2(0, 0);
+  const uint16_t* h = reinterpret_cast<const uint16_t*>(p);
+  uint32_t v[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = k + i < n ? h[i] : 0u;
+  return make_uint2(v[0] | v[1] << 16, v[2] | v[3] << 16);
+}
+
+// the loaded elements as f32 (a bf16 is the top half of its f32)
+__device__ __forceinline__ float4 widen4(float4 v) { return v; }
+__device__ __forceinline__ float4 widen4(uint2 u) {
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+// v[0..4) to p, of which the first n exist; one store where `vec` and all
+// 4 exist.  bf16 rounds to nearest even, as torch's cast.
+__device__ __forceinline__ void store4(float* p, const float (&v)[4], int n,
+                                       bool vec) {
+  if (vec && n >= 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (i < n) p[i] = v[i];
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4],
+                                       int n, bool vec) {
+  if (vec && n >= 4) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+    uint2 u;
+    u.x = *reinterpret_cast<const uint32_t*>(&lo);
+    u.y = *reinterpret_cast<const uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(p) = u;
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (i < n) p[i] = __float2bfloat16(v[i]);
 }
 
 }  // namespace hopper

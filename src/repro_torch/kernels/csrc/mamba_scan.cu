@@ -58,6 +58,8 @@
 
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kThreads = 64;     // channels per block, one per thread
@@ -92,23 +94,9 @@ __device__ __forceinline__ float load(const void* p, int bf16, long long i) {
               : static_cast<const float*>(p)[i];
 }
 
-// 16 bytes global -> shared, zero-filled where `bytes` < 16 (0: all zeros)
-__device__ __forceinline__ void cp16(void* dst, const void* src, int bytes) {
-  asm volatile(
-      "cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-          static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-      "l"(src), "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using hopper::cp16;
+using hopper::cp_commit;
+using hopper::cp_wait;
 
 // steps [t0, t0 + steps) of a (B, S, width) stream, columns [c0, c0 + cols)
 // of each row, into dst[t][0..cols) in the stream's type (row pitch

@@ -14,7 +14,9 @@
 // Bound on an H100: operations.  At the jamba-v0.1-52b shape (E=16,
 // C=1280, D=4096, F=14336) one product is 2*E*C*D*F = 2.4 TFLOP against
 // 2.0 GB of bf16 operands: 2.4 ms at the 989 TFLOP/s bf16 tensor-core
-// rate.
+// rate.  In f32 at C=640 (the f32 forward's capacity) 1.2 TFLOP: 17.9 ms
+// at the 67 TFLOP/s of the CUDA cores; at the decode capacity (C=8) the
+// 3.8 GB of f32 w: 1.12 ms at 3.35 TB/s.
 //
 // Two routes, chosen by the wrapper (kernels/ops.py `gmm_route`):
 //
@@ -22,17 +24,32 @@
 //   16-byte aligned): wgmma on the tensor cores fed by a TMA ring, below.
 // * `moe_gmm_kernel` (everything else: f32, mixed types, unaligned
 //   widths): f32 FMAs on the CUDA cores, whose floor is the 67 TFLOP/s
-//   f32 rate.  One block of 256 threads per (expert, 64-row x 64-column
-//   tile of the C x F output).  The TPU kernel carried an f32 accumulator
-//   in VMEM scratch across a sequential K grid axis; here the block loops
-//   over K (= D) in tiles of 16 itself, staging the x tile (transposed,
-//   f32) and the w tile (f32) in shared memory, and each thread keeps a
-//   4 x 4 f32 micro-tile of the output in registers.  Per K step a thread
-//   reads one float4 of x and one of w from shared memory for 16 FMAs.
+//   f32 rate (the 1e-5 gate rules out TF32 and bf16 tensor cores).
+//
+// The CUDA-core design, a register- and shared-memory-tiled SGEMM: one
+// block of 256 threads per (row tile, 128-column tile, expert) of the
+// output.  The TPU kernel carried an f32 accumulator in VMEM scratch
+// across a sequential K grid axis; here the block loops over K (= D)
+// itself, a stage of 16 (32 for the smallest tile) at a time.  Each
+// stage's x tile is stored transposed (k-major) and its w tile as
+// stored, both f32, in two shared-memory buffers: the next stage's global
+// loads go into registers as loaded (zeros past ragged edges) while the
+// FMAs of the current one run, and land in the other buffer after them,
+// widened to f32 only then (so nothing waits on a bf16 load before the
+// FMAs), with one __syncthreads a stage.  The row tile is 128 (8 rows x
+// 8 columns of the output a thread: each float4 shared load feeds 16
+// FMAs), or 16 for small capacities such as decoding's (1 row a
+// thread), where a 128-row tile would spend up to 16x the FMAs while the
+// bytes of w bound the call; the wrapper's rule `gmm_row_tile` picks it.  The grid's fastest axis is the row tile, so the blocks that share
+// a w tile run together and read it from L2.  The types are template
+// parameters; the loads take 4 elements at a time where D and F are
+// multiples of 4 and the bases aligned (`vec`, uniform per launch), one
+// at a time otherwise.  Each thread's global pointers are set once and
+// advanced a stage at a time, so no per-element index needs 64 bits
+// (one jamba expert tensor holds 939.5 M elements).
 //
 // Ragged C, D and F are masked in the kernels (zeros in shared memory
-// add nothing), so nothing is padded in device memory.  Offsets are
-// 64-bit: one jamba expert tensor holds 939.5 M elements.
+// add nothing), so nothing is padded in device memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,109 +58,195 @@
 
 namespace {
 
-constexpr int kBM = 64;   // output rows (C) per block
-constexpr int kBN = 64;   // output columns (F) per block
-constexpr int kBK = 16;   // reduction depth (D) per shared-memory tile
+constexpr int kBN = 128;  // output columns (F) per block
 constexpr int kThreads = 256;
-constexpr int kTM = 4;    // rows per thread
-constexpr int kTN = 4;    // columns per thread
-constexpr int kAPad = 4;  // keeps float4 rows aligned, spreads the banks
+constexpr int kAPad = 4;  // keeps float4 rows aligned
 
-static_assert((kBM / kTM) * (kBN / kTN) == kThreads, "thread tiling");
-static_assert(kBM * kBK % kThreads == 0 && kBK * kBN % kThreads == 0,
-              "tile loads");
+// per row tile: the reduction depth of a stage and the blocks an SM
+// should hold (the launch bounds' register budget).  The 128-row tile
+// takes a depth of 16 at one block an SM (165 registers): at two blocks
+// the 128-register budget spills at that depth, and a depth of 8 at two
+// blocks ran slower at jamba's f32 shapes; the 16-row tile, bound by
+// the bytes of w in flight, a depth of 32.
+template <int BM> struct GmmTile;
+template <> struct GmmTile<128> {
+  static constexpr int kBK = 16;
+  static constexpr int kMinBlocks = 1;
+};
+template <> struct GmmTile<16> {
+  static constexpr int kBK = 32;
+  static constexpr int kMinBlocks = 2;
+};
 
-__device__ __forceinline__ float load(const void* p, int bf16,
-                                      long long i) {
-  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
-              : static_cast<const float*>(p)[i];
-}
+using hopper::fetch_raw4;
+using hopper::store4;
+using hopper::widen4;
 
-__device__ __forceinline__ void store(void* p, int bf16, long long i,
-                                      float v) {
-  if (bf16)
-    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(v);
-  else
-    static_cast<float*>(p)[i] = v;
-}
+// o[e] = x[e] @ w[e] for a BM x 128 output tile.  The 256 threads form a
+// 16 x 16 grid (ty over rows, tx over columns); a warp is 4 x 8 of them,
+// so each of its shared loads is one 128-byte wavefront.  A thread owns
+// columns tx*4 .. +3 and 64 + tx*4 .. +3, and rows ty*4 .. +3 and
+// BM/2 + ty*4 .. +3 (BM = 128) or row ty (BM = 16).
+template <typename TX, typename TW, int BM>
+__global__ void __launch_bounds__(kThreads, GmmTile<BM>::kMinBlocks)
+    moe_gmm_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
+                   TX* __restrict__ o, int C, int D, int F, bool vec) {
+  constexpr int kBK = GmmTile<BM>::kBK;
+  constexpr int TM = BM / 16;              // rows per thread
+  constexpr int kAS = BM + kAPad;          // row pitch of the transposed x tile
+  constexpr int kAPieces = BM * kBK / 4;   // float4 pieces of an x tile
+  constexpr int kAIters = (kAPieces + kThreads - 1) / kThreads;
+  constexpr int kBIters = kBK * kBN / 4 / kThreads;
+  static_assert(kBK % 8 == 0 && (kAPieces % kThreads == 0 ||
+                                 kAPieces < kThreads), "tile loads");
+  __shared__ __align__(16) float xs[2][kBK][kAS];
+  __shared__ __align__(16) float ws[2][kBK][kBN];
 
-__global__ void __launch_bounds__(kThreads)
-    moe_gmm_kernel(const void* __restrict__ x, const void* __restrict__ w,
-                   void* __restrict__ o, int x_bf16, int w_bf16, int C,
-                   int D, int F) {
-  __shared__ __align__(16) float xs[kBK][kBM + kAPad];  // x tile, transposed
-  __shared__ __align__(16) float ws[kBK][kBN];
-
+  const int c0 = blockIdx.x * BM;
+  const int f0 = blockIdx.y * kBN;
   const int e = blockIdx.z;
-  const int c0 = blockIdx.y * kBM;
-  const int f0 = blockIdx.x * kBN;
   const int tid = threadIdx.x;
-  const int tr = (tid / (kBN / kTN)) * kTM;  // first row of the micro-tile
-  const int tc = (tid % (kBN / kTN)) * kTN;  // first column
+  const int lane = tid % 32, warp = tid / 32;
+  const int tx = (warp % 2) * 8 + lane % 8;
+  const int ty = (warp / 2) * 4 + lane / 8;
 
-  const long long x_base = static_cast<long long>(e) * C * D;
-  const long long w_base = static_cast<long long>(e) * D * F;
+  // this thread's pieces of each x tile (row ar, k ak .. ak + 3) and of
+  // each w tile (k br, columns bc .. bc + 3), a step's pointers to them
+  // advanced a step at a time
+  const TX* xp[kAIters];
+  int ar[kAIters], ak[kAIters];
+  bool a_live[kAIters];
+#pragma unroll
+  for (int it = 0; it < kAIters; ++it) {
+    const int p = tid + it * kThreads;
+    ar[it] = p / (kBK / 4);
+    ak[it] = (p % (kBK / 4)) * 4;
+    a_live[it] = p < kAPieces && c0 + ar[it] < C;
+    xp[it] = x + (static_cast<long long>(e) * C + min(c0 + ar[it], C - 1)) *
+                     D + ak[it];
+  }
+  const int bc = (tid % 32) * 4;
+  const bool b_live = f0 + bc < F;
+  const TW* wp = w + (static_cast<long long>(e) * D + tid / 32) * F + f0 + bc;
+  const long long w_row = 8LL * F;               // 8 rows of w a piece apart
+  const long long w_step = static_cast<long long>(kBK) * F;
 
-  float acc[kTM][kTN];
+  float acc[TM][8];
 #pragma unroll
-  for (int i = 0; i < kTM; ++i)
+  for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
 
-  for (int k0 = 0; k0 < D; k0 += kBK) {
-    __syncthreads();  // the last tile's readers are done
-    // x tile: 64 rows x 16 columns of D; a warp reads two rows of 16
+  // step k0's pieces into registers as loaded (zeros past C, D and F),
+  // so that nothing waits on them until they are stored ...
+  typename hopper::Raw4<TX>::type ra[kAIters];
+  typename hopper::Raw4<TW>::type rb[kBIters];
+  auto fetch = [&](int k0) {
 #pragma unroll
-    for (int r = 0; r < kBM * kBK / kThreads; ++r) {
-      const int i = tid + r * kThreads;
-      const int m = i / kBK;
-      const int kk = i % kBK;
-      float v = 0.0f;
-      if (c0 + m < C && k0 + kk < D)
-        v = load(x, x_bf16, x_base + static_cast<long long>(c0 + m) * D +
-                                k0 + kk);
-      xs[kk][m] = v;
+    for (int it = 0; it < kAIters; ++it)
+      ra[it] = a_live[it] ? fetch_raw4(xp[it], k0 + ak[it], D, vec)
+                          : typename hopper::Raw4<TX>::type{};
+#pragma unroll
+    for (int it = 0; it < kBIters; ++it) {
+      const int kr = k0 + tid / 32 + 8 * it;
+      rb[it] = b_live && kr < D
+                   ? fetch_raw4(wp + it * w_row, f0 + bc, F, vec)
+                   : typename hopper::Raw4<TW>::type{};
     }
-    // w tile: 16 rows of D x 64 columns; a warp reads 32 neighbours
+  };
+  // ... and into stage s as f32 (x transposed)
+  auto store = [&](int s) {
 #pragma unroll
-    for (int r = 0; r < kBK * kBN / kThreads; ++r) {
-      const int i = tid + r * kThreads;
-      const int kk = i / kBN;
-      const int n = i % kBN;
-      float v = 0.0f;
-      if (k0 + kk < D && f0 + n < F)
-        v = load(w, w_bf16, w_base + static_cast<long long>(k0 + kk) * F +
-                                f0 + n);
-      ws[kk][n] = v;
+    for (int it = 0; it < kAIters; ++it) {
+      if (tid + it * kThreads < kAPieces) {
+        const float4 a = widen4(ra[it]);
+        xs[s][ak[it]][ar[it]] = a.x;
+        xs[s][ak[it] + 1][ar[it]] = a.y;
+        xs[s][ak[it] + 2][ar[it]] = a.z;
+        xs[s][ak[it] + 3][ar[it]] = a.w;
+      }
     }
-    __syncthreads();
+#pragma unroll
+    for (int it = 0; it < kBIters; ++it)
+      *reinterpret_cast<float4*>(&ws[s][tid / 32 + 8 * it][bc]) =
+          widen4(rb[it]);
+  };
 
+  const int n_k = (D + kBK - 1) / kBK;
+  if (n_k > 0) {
+    fetch(0);
+    store(0);
+  }
+  __syncthreads();
+
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int s = kt % 2;
+    const bool more = kt + 1 < n_k;
+    if (more) {                          // step kt + 1 into registers
+#pragma unroll
+      for (int it = 0; it < kAIters; ++it) xp[it] += kBK;
+      wp += w_step;
+      fetch((kt + 1) * kBK);
+    }
 #pragma unroll
     for (int kk = 0; kk < kBK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&xs[kk][tr]);
-      const float4 b = *reinterpret_cast<const float4*>(&ws[kk][tc]);
-      const float av[kTM] = {a.x, a.y, a.z, a.w};
-      const float bv[kTN] = {b.x, b.y, b.z, b.w};
+      float a[TM];
+      if constexpr (TM == 8) {
+        const float4 a0 = *reinterpret_cast<const float4*>(&xs[s][kk][ty * 4]);
+        const float4 a1 =
+            *reinterpret_cast<const float4*>(&xs[s][kk][BM / 2 + ty * 4]);
+        a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
+        a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
+      } else {
+        a[0] = xs[s][kk][ty];
+      }
+      const float4 b0 = *reinterpret_cast<const float4*>(&ws[s][kk][tx * 4]);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(&ws[s][kk][kBN / 2 + tx * 4]);
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-      for (int i = 0; i < kTM; ++i)
+      for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
+    if (more) store(s ^ 1);              // ... and into the other stage
+    __syncthreads();
   }
 
-  const long long o_base = static_cast<long long>(e) * C * F;
+  TX* oe = o + static_cast<long long>(e) * C * F;
 #pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int c = c0 + tr + i;
+  for (int i = 0; i < TM; ++i) {
+    const int r = TM == 8 ? (i / 4) * (BM / 2) + ty * 4 + i % 4 : ty;
+    const int c = c0 + r;
     if (c >= C) continue;
+    TX* orow = oe + static_cast<long long>(c) * F;
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int f = f0 + tc + j;
-      if (f < F)
-        store(o, x_bf16, o_base + static_cast<long long>(c) * F + f,
-              acc[i][j]);
+    for (int h = 0; h < 2; ++h) {
+      const int f = f0 + h * (kBN / 2) + tx * 4;
+      const float v[4] = {acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                          acc[i][4 * h + 3]};
+      if (f < F) store4(orow + f, v, F - f, vec);
     }
   }
+}
+
+template <typename TX, typename TW, int BM>
+void launch_tile(const void* x, const void* w, void* o, int E, int C, int D,
+                 int F, bool vec, cudaStream_t stream) {
+  const dim3 grid((C + BM - 1) / BM, (F + kBN - 1) / kBN, E);
+  moe_gmm_kernel<TX, TW, BM><<<grid, kThreads, 0, stream>>>(
+      static_cast<const TX*>(x), static_cast<const TW*>(w),
+      static_cast<TX*>(o), C, D, F, vec);
+}
+
+template <typename TX, typename TW>
+int launch_gmm(const void* x, const void* w, void* o, int E, int C, int D,
+               int F, int row_tile, bool vec, cudaStream_t stream) {
+  if (row_tile == 16)
+    launch_tile<TX, TW, 16>(x, w, o, E, C, D, F, vec, stream);
+  else
+    launch_tile<TX, TW, 128>(x, w, o, E, C, D, F, vec, stream);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -277,19 +380,34 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 // -- C entry point (bound with ctypes) ----------------------------------------
 //
 // x (E,C,D), w (E,D,F), o (E,C,F), all contiguous.  `x_bf16` / `w_bf16`
-// select each input's type (0: f32, 1: bf16); o has x's type.  Returns
-// the launch's cudaError_t.
+// select each input's type (0: f32, 1: bf16); o has x's type.
+// `row_tile` (16 or 128) is the output rows of a block, the wrapper's
+// `gmm_row_tile(C)`.  Returns the launch's cudaError_t.
 extern "C" int moe_gmm(const void* x, const void* w, void* o, int x_bf16,
-                       int w_bf16, int E, int C, int D, int F,
+                       int w_bf16, int E, int C, int D, int F, int row_tile,
                        void* stream) {
-  if (E < 0 || C < 0 || D < 0 || F < 0 || E > 65535)
+  if (E < 0 || C < 0 || D < 0 || F < 0 || E > 65535 ||
+      (F + kBN - 1) / kBN > 65535 ||
+      (row_tile != 16 && row_tile != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   if (E == 0 || C == 0 || F == 0) return static_cast<int>(cudaGetLastError());
-  const dim3 grid((F + kBN - 1) / kBN, (C + kBM - 1) / kBM, E);
-  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  moe_gmm_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, w, o, x_bf16, w_bf16, C, D, F);
-  return static_cast<int>(cudaGetLastError());
+  // 4 elements a load: rows of D and F whole multiples of 4, every base
+  // aligned to 4 elements
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x) % (x_bf16 ? 8 : 16);
+  const uintptr_t wa = reinterpret_cast<uintptr_t>(w) % (w_bf16 ? 8 : 16);
+  const uintptr_t oa = reinterpret_cast<uintptr_t>(o) % (x_bf16 ? 8 : 16);
+  const bool vec = D % 4 == 0 && F % 4 == 0 && xa == 0 && wa == 0 && oa == 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_bf16 && w_bf16)
+    return launch_gmm<__nv_bfloat16, __nv_bfloat16>(x, w, o, E, C, D, F,
+                                                    row_tile, vec, s);
+  if (x_bf16)
+    return launch_gmm<__nv_bfloat16, float>(x, w, o, E, C, D, F, row_tile,
+                                            vec, s);
+  if (w_bf16)
+    return launch_gmm<float, __nv_bfloat16>(x, w, o, E, C, D, F, row_tile,
+                                            vec, s);
+  return launch_gmm<float, float>(x, w, o, E, C, D, F, row_tile, vec, s);
 }
 
 // The tensor-core route: x (E,C,D), w (E,D,F), o (E,C,F), all bf16 and

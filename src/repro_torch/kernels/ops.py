@@ -48,7 +48,8 @@ import torch
 from repro_torch.kernels import ref
 
 __all__ = ["LAUNCHES", "ROUTES", "MLSTM_ROUTES", "reset_launches",
-           "flash_route", "gmm_route", "mlstm_route", "scan_segment_len",
+           "flash_route", "gmm_route", "gmm_row_tile", "mlstm_route",
+           "scan_segment_len",
            "campaign_preempt",
            "campaign_match", "campaign_advance", "campaign_bill",
            "flash_attention", "flash_attention_kernel", "moe_gmm",
@@ -365,6 +366,21 @@ def gmm_route(x_dtype: torch.dtype, w_dtype: torch.dtype, D: int, F: int,
     return "simt"
 
 
+def gmm_row_tile(C: int) -> int:
+    """Output rows per block of moe_gmm's CUDA-core route: 16 up to
+    C=32, 128 above.  A block computes its whole row tile whatever C is,
+    so a tile much taller than C spends FMAs on nothing (the decode
+    capacity, C=8, is bound by the bytes of w), while each block row
+    reads all of w again (from L2: the row tile is the grid's fastest
+    axis) and the 16-row tile runs its FMAs at a lower rate.  One block
+    row of 128 takes 2.25 times as long as one of 16 (jamba's E=16,
+    D=4096, F=14336, f32, on an H100: scripts/simt_timings.py --tiles;
+    the times are in PERF.md), so up to two 16-row block rows, C <= 32,
+    beat one of 128, and from C=33 on the 128-row tile takes less
+    time."""
+    return 16 if C <= 32 else 128
+
+
 def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Per-expert product x (E,C,D) @ w (E,D,F) -> (E,C,F) with f32
     accumulation, in x's dtype.  x and w are each f32 or bf16; any C, D
@@ -379,8 +395,8 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                          "expected w (E, D, F)")
     if not _on_card(x, op):
         return ref.moe_gmm_ref(x, w)
-    if E > 65535 or -(-C // 64) > 65535:
-        raise ValueError(f"{op}: {E} experts of {C} rows exceed the grid")
+    if E > 65535 or -(-F // 128) > 65535:
+        raise ValueError(f"{op}: {E} experts of {F} columns exceed the grid")
     from repro_torch.kernels.build import library
     o = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
     route = _pick(op, gmm_route(x.dtype, w.dtype, D, F,
@@ -391,7 +407,7 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     else:
         err = library().moe_gmm(x.data_ptr(), w.data_ptr(), o.data_ptr(),
                                 _is_bf16(x), _is_bf16(w), E, C, D, F,
-                                _stream(x))
+                                gmm_row_tile(C), _stream(x))
     _raise_on(err, op)
     LAUNCHES[op] += 1
     ROUTES[f"{op}.{route}"] += 1
