@@ -86,13 +86,16 @@ Phases (any failure raises and exits non-zero with no result line):
              tests/test_kernels.py in f32 and bf16 and a dv that is not a
              multiple of the kernel's tile, on each route that takes the
              case (bf16: the two-phase tensor-core "wgmma" route and the
-             CUDA-core "simt" route, forced in turn, one launch each;
-             f32: "simt"): elementwise within 5e-4 (f32) / 5e-2 (bf16)
-             absolute plus relative, and the worst (b, t, h) row's
+             two-phase CUDA-core "simt" route, forced in turn, one launch
+             each; f32: "simt"): elementwise within 5e-4 (f32) / 5e-2
+             (bf16) absolute plus relative, and the worst (b, t, h) row's
              relative error over dv (MLSTM_ROW_TOL); the per-call, device
-             (all of a call's CUDA kernels) and plain version's times (the
-             plain loop over S timed over 3 calls), the bound (no library
-             call computes it) and the design's own state-scratch traffic;
+             (all of a call's CUDA kernels, and each of the three: gates,
+             states, outputs) and plain version's times (the plain loop
+             over S timed over 3 calls), the bound (no library call
+             computes it) and the design's own state-scratch traffic (C
+             entering every chunk written and read: bf16 on wgmma, f32 on
+             simt);
  14. xlstm   the jamba weights freed, xlstm-350m at full width and depth
              (24 layers: 21 mLSTM + 3 sLSTM, 530.2 M f32 parameters, random
              from the port's init_params): forward_loss at B=2, S=4096 in
@@ -102,19 +105,21 @@ Phases (any failure raises and exits non-zero with no result line):
              the chunked reference path: finite loss within 2.0 of ln
              50304, kernel vs reference within 1e-2 (bf16) / 1e-4 (f32)
              relative; tokens/s, peak memory, a profiled bf16 forward on
-             each path;
+             each path and a profiled f32 forward through the kernel (its
+             device busy time and the 21 simt launches);
  15. xserved BatchServer(slots=4, max_len=128) on the xlstm weights, f32,
              8 requests as in 8, and the prefill-vs-decode check;
  16. report  a ``{"kernels": [...]}`` line (each entry with its route,
              "cuda", and "cuda_route", the kernel's route on the main path:
              "wgmma" or "simt"; flash attention and moe_gmm have one entry
-             per route, the simt one, "flash_attention.simt" and
-             "moe_gmm.simt", at the f32 forwards' shapes and launches),
+             per route, the simt one, "flash_attention.simt",
+             "moe_gmm.simt" and "mlstm_chunk.simt", at the f32 forwards'
+             shapes and launches),
              the nvidia-smi line, and last
              ``{"ok": true, "device": {...}}``.
 
 Device times are per wrapper call: a call that launches several CUDA
-kernels (mlstm_chunk's tensor-core route: three; mamba_scan with its
+kernels (mlstm_chunk: three on either route; mamba_scan with its
 sequence in segments: two) counts all of them.
 
 Exits 2 without a card or without the repository's ``src/`` beside it.
@@ -153,6 +158,7 @@ GMM_REPLACES = "src/repro/kernels/moe_gmm.py:39"
 SCAN_SOURCE = "src/repro_torch/kernels/csrc/mamba_scan.cu"
 SCAN_REPLACES = "src/repro/kernels/mamba_scan.py:51"
 MLSTM_SOURCE = "src/repro_torch/kernels/csrc/mlstm_chunk_wgmma.cu"
+MLSTM_SIMT_SOURCE = "src/repro_torch/kernels/csrc/mlstm_chunk.cu"
 MLSTM_REPLACES = "src/repro/kernels/mlstm_chunk.py:74"
 INT_COUNTERS = ("preemptions", "jobs_finished", "nat_drops")
 REL = 1e-5
@@ -256,11 +262,11 @@ def per_call_ms(hits) -> float:
     return sum(e.self_device_time_total / e.count for e in hits) / 1e3
 
 
-def device_ms(fn, kernel: str, calls: int = 50):
-    """Mean device time (ms) per call of ``fn`` spent in the CUDA kernels
-    whose names contain ``kernel`` (all of them: a call may launch
-    several), from the profiler trace of ``calls`` calls; None where the
-    trace has none."""
+def device_split(fn, kernel: str, calls: int = 50) -> dict:
+    """Mean device time (ms) per call of ``fn`` in each CUDA kernel whose
+    name contains ``kernel`` (a call may launch several), by kernel name,
+    from the profiler trace of ``calls`` calls; empty where the trace has
+    none."""
     def many():
         for _ in range(calls):
             fn()
@@ -274,13 +280,23 @@ def device_ms(fn, kernel: str, calls: int = 50):
         log(f"[profile] window {attempt + 1}: no {kernel} among "
             f"{len(seen)} device events")
     else:
-        return None
+        return {}
+    split = {}
+    for e in hits:
+        name = kernel_name(e.key)
+        split[name] = split.get(name, 0.0) + per_call_ms([e])
     if len(hits) > 1:                  # where a call's time goes
         log("[profile] per call: " + ", ".join(
-            f"{kernel_name(e.key)} "
-            f"{e.self_device_time_total / e.count / 1e3:.4f} ms"
-            for e in hits))
-    return per_call_ms(hits)
+            f"{name} {ms:.4f} ms" for name, ms in split.items()))
+    return split
+
+
+def device_ms(fn, kernel: str, calls: int = 50):
+    """Mean device time (ms) per call of ``fn`` spent in the CUDA kernels
+    whose names contain ``kernel`` (all of them), as ``device_split``
+    finds them; None where the trace has none."""
+    split = device_split(fn, kernel, calls)
+    return sum(split.values()) if split else None
 
 
 def bound(nbytes: int, flops: int, peak: float = FP32_FLOPS_PER_S):
@@ -1124,9 +1140,12 @@ MLSTM_TOL = {torch.float32: 5e-4, torch.bfloat16: 5e-2}
 # route at the xlstm shape, on an NVIDIA H100 80GB HBM3 at 700 W; a state
 # dropped or left unrescaled at chunk 30 of 32 reads 1.0 and 3.5)
 MLSTM_ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
-# the profiler's kernel names of each route (the wgmma route launches
-# mlstm_chunk_wgmma_gates, _states and _outputs)
+# the profiler's kernel names of each route: one substring catches a
+# route's three kernels and none of the other's (mlstm_chunk_wgmma_gates,
+# _states and _outputs; mlstm_chunk_kernel_gates, _states and _outputs)
 MLSTM_KERNEL = {"wgmma": "mlstm_chunk_wgmma", "simt": "mlstm_chunk_kernel"}
+# bytes of an element of the state scratch (C entering every chunk)
+MLSTM_STATE_BYTES = {"wgmma": 2, "simt": 4}
 # (label, layout, shape, stream dtypes q/k/v, gates or None for the
 # case's dtype in both): the model layout is (B, H, S, dqk, dv) through
 # mlstm_chunk_model, the kernel layout (BH, S, dqk, dv, block_s) through
@@ -1227,21 +1246,25 @@ def check_mlstm(dev) -> dict:
                          f"{err}, tolerance {tol} + {tol} |plain|; worst "
                          f"row {row}, tolerance {row_tol})")
                 del got
-                # the two-phase route also writes and reads the state
-                # entering every chunk (C in bf16): its own traffic
-                state = 2 * 2 * BH * -(-S // chunk) * -(-dqk // 64) * 64 \
-                    * -(-dv // 128) * 128 if route == "wgmma" else 0
+                # both routes also write and read the state entering every
+                # chunk (C at (dqk, dv) padded to 64 x 128): their own
+                # traffic
+                state = 2 * MLSTM_STATE_BYTES[route] * BH * -(-S // chunk) \
+                    * -(-dqk // 64) * 64 * -(-dv // 128) * 128
+                split = device_split(kern, MLSTM_KERNEL[route],
+                                     calls=5 if big else 20)
                 res = {"max_abs_err": err, "worst_row_err": row,
                        "ms": time_ms(kern, 5 if big else 50,
                                      2 if big else 5),
                        "plain_ms": plain_ms, "library_ms": None,
-                       "device_ms": device_ms(kern, MLSTM_KERNEL[route],
-                                              calls=5 if big else 20),
-                       "bound_ms": b, "bound_by": how,
+                       "device_ms": sum(split.values()) if split else None,
+                       "split": split, "bound_ms": b, "bound_by": how,
                        "state_ms": state / HBM_BYTES_PER_S * 1e3}
             out[(label, sdt, route)] = res
             dev_ms = "not measured" if res["device_ms"] is None \
-                else f"{res['device_ms']:.4f} ms"
+                else f"{res['device_ms']:.4f} ms: " + ", ".join(
+                    f"{name.rsplit('_', 1)[-1]} {ms:.4f}"
+                    for name, ms in res["split"].items())
             log(f"[mlstm] {label} {layout} {shape} {str(sdt)[6:]}/gates "
                 f"{str(gdt)[6:]}: {route} route, max abs err {err:.3g} (tol "
                 f"{tol}), worst row {row:.3g} (tol {row_tol}); kernel "
@@ -1261,7 +1284,9 @@ def check_mlstm(dev) -> dict:
 def xlstm_forward_phase(params, cfg, dev) -> dict:
     """forward_loss at full width and depth through the mlstm_chunk
     kernel (the resolver's hooks for attention_impl="pallas") and the
-    chunked reference path, in bf16 (B=2) and f32 (B=1)."""
+    chunked reference path, in bf16 (B=2) and f32 (B=1); per dtype the
+    losses, times and, from the kernel forward's profile, the launches
+    and device ms per mlstm_chunk call."""
     from repro_torch.configs import REDUCED_SHAPE, RunConfig
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import _resolve_kernels
@@ -1281,7 +1306,7 @@ def xlstm_forward_phase(params, cfg, dev) -> dict:
         tok = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
         batch = {"tokens": torch.from_numpy(tok[:, :-1]).to(dev),
                  "targets": torch.from_numpy(tok[:, 1:]).to(dev)}
-        losses, secs = {}, {}
+        losses, secs, kern = {}, {}, {}
         for label, kw in (("kernel", hooks), ("reference", {})):
             forward_loss(params, cfg, batch, compute_dtype=dtype, **kw)
             torch.cuda.synchronize()
@@ -1316,16 +1341,16 @@ def xlstm_forward_phase(params, cfg, dev) -> dict:
                 f"mlstm_chunk launches {launches['mlstm_chunk']} "
                 f"({ {k: n for k, n in routes.items() if n} }), peak "
                 f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
-            if dtype != torch.bfloat16:
-                continue
+            if dtype != torch.bfloat16 and label != "kernel":
+                continue                  # f32: the kernel forward's alone
             prof = profile_forward(
                 lambda: forward_loss(params, cfg, batch,
                                      compute_dtype=dtype, **kw),
-                secs[label], tag=f"xlstm {label}",
+                secs[label], tag=f"xlstm {label} {str(dtype)[6:]}",
                 kernels=(MLSTM_KERNEL[route],))
             if label == "kernel":
-                out["launches"] = launches["mlstm_chunk"]
-                out["device_ms"] = prof[MLSTM_KERNEL[route]]
+                kern = {"launches": launches["mlstm_chunk"],
+                        "device_ms": prof[MLSTM_KERNEL[route]]}
         d = abs(losses["kernel"] - losses["reference"]) \
             / abs(losses["reference"])
         if d > rel:
@@ -1334,7 +1359,7 @@ def xlstm_forward_phase(params, cfg, dev) -> dict:
                  f"{rel})")
         log(f"[xlstm] {str(dtype)[6:]}: kernel vs reference loss {d:.3g} "
             f"relative (tol {rel})")
-        out[str(dtype)] = {"losses": losses, "secs": secs, "rel": d}
+        out[str(dtype)] = {"losses": losses, "secs": secs, "rel": d, **kern}
         del batch
         torch.cuda.empty_cache()
     return out
@@ -1451,8 +1476,12 @@ def main() -> int:
         if res["device_ms"] is None:
             res["device_ms"] = prof
     main_mlstm = mlstm[("xlstm-b2-model", torch.bfloat16, "wgmma")]
-    if main_mlstm["device_ms"] is None:
-        main_mlstm["device_ms"] = xlstm["device_ms"]
+    mlstm_f32 = mlstm[("xlstm-b1-f32", torch.float32, "simt")]
+    x_bf16, x_f32 = xlstm[str(torch.bfloat16)], xlstm[str(torch.float32)]
+    for res, prof in ((main_mlstm, x_bf16["device_ms"]),
+                      (mlstm_f32, x_f32["device_ms"])):
+        if res["device_ms"] is None:
+            res["device_ms"] = prof
     keys = ("max_abs_err", "ms", "plain_ms", "device_ms", "bound_ms",
             "bound_by", "library_ms")
     report = {"kernels": [
@@ -1482,8 +1511,12 @@ def main() -> int:
          **{key: main_scan[key] for key in keys}},
         {"name": "mlstm_chunk", "route": "cuda", "cuda_route": "wgmma",
          "source": MLSTM_SOURCE, "replaces": MLSTM_REPLACES,
-         "launches": xlstm["launches"],
-         **{key: main_mlstm[key] for key in keys}}]}
+         "launches": x_bf16["launches"],
+         **{key: main_mlstm[key] for key in keys}},
+        {"name": "mlstm_chunk.simt", "route": "cuda", "cuda_route": "simt",
+         "source": MLSTM_SIMT_SOURCE, "replaces": MLSTM_REPLACES,
+         "launches": x_f32["launches"],
+         **{key: mlstm_f32[key] for key in keys}}]}
     print(json.dumps(report))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Time the CUDA-core ("simt") routes of flash attention and moe_gmm at
-the main paths' shapes, and moe_gmm's CUDA-core kernel at each of its row
-tiles over a range of capacities.
+"""Time the CUDA-core ("simt") routes of moe_gmm, flash attention and
+mlstm_chunk at the main paths' shapes, and moe_gmm's CUDA-core kernel at
+each of its row tiles over a range of capacities.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 scripts/simt_timings.py [--src DIR] [--tiles]
+    python3 scripts/simt_timings.py [--src DIR] [--ops gmm,flash,mlstm]
+                                    [--tiles] [--xlstm]
 
 ``--src`` imports ``repro_torch`` from another tree's ``src`` (for
 example a ``git archive`` of the parent commit unpacked under
@@ -13,9 +14,18 @@ example a ``git archive`` of the parent commit unpacked under
 one call; its kernels are built into that tree's own ``build/``.  Each
 case forces the simt route, checks the kernel against its plain version
 (moe_gmm: max |err| / max |plain| within 1e-5 in f32, 1e-2 in bf16;
-flash: max |err| within 2e-5 / 2e-2) and prints the mean of a few calls
-(CUDA events, after a warm-up) beside ``torch.bmm`` or
-``scaled_dot_product_attention`` (TF32 off).
+flash: max |err| within 2e-5 / 2e-2; mlstm_chunk: the worst (b, t, h)
+row's relative error within 1e-4 / 3e-2, against the sequential plain
+version) and prints the mean of a few calls (CUDA events, after a
+warm-up) beside ``torch.bmm`` or ``scaled_dot_product_attention`` (TF32
+off; no library call computes the mLSTM).  ``--ops`` picks the kernels.
+
+``--xlstm`` also runs xlstm-350m at full width and depth (random weights
+from the tree's ``init_params``, seed 2021) in f32 at B=1, S=4096 through
+the kernel hooks (every mlstm_chunk launch on the simt route): the wall
+time of one forward after a warm-up, and from a profiled one the device
+busy time, the CUDA kernel launches and the mlstm_chunk kernels' device
+time a call.
 
 ``--tiles`` also times the moe_gmm kernel of this tree at row tiles 16
 and 128 for C from 8 to 256 (f32, jamba's E=16, D=4096, F=14336),
@@ -29,6 +39,7 @@ import argparse
 import ctypes
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -49,6 +60,9 @@ FLASH = [("yi-9b", 2, 4096, 32, 4, 128, F32),
          ("yi-9b", 2, 4096, 32, 4, 128, BF),
          ("d80", 2, 2048, 16, 2, 80, F32),
          ("d256", 1, 2048, 8, 2, 256, F32)]
+# (label, B, S, H, dqk, dv, stream dtype): xlstm-350m's mLSTM, f32 gates
+MLSTM = [("xlstm-b1", 1, 4096, 4, 512, 512, F32),
+         ("xlstm-b2", 2, 4096, 4, 512, 512, BF)]
 
 
 def t_ms(fn, n: int) -> float:
@@ -64,11 +78,60 @@ def t_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
+def xlstm_forward(tag: str, dev) -> bool:
+    """The xlstm-350m f32 B=1 forward through the kernel; True when its
+    21 mlstm_chunk launches all took the simt route."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import REDUCED_SHAPE, RunConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import _resolve_kernels
+    from repro_torch.models import forward_loss, init_params
+    cfg = get_config("xlstm-350m")
+    params = init_params(cfg, 2021, device=dev)
+    tok = np.random.default_rng(2021).integers(0, cfg.vocab_size,
+                                               (1, 4097)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(tok[:, :-1]).to(dev),
+             "targets": torch.from_numpy(tok[:, 1:]).to(dev)}
+    hooks = _resolve_kernels(RunConfig(model=cfg, shape=REDUCED_SHAPE,
+                                       attention_impl="pallas"))
+
+    def fwd():
+        return forward_loss(params, cfg, batch, compute_dtype=F32, **hooks)
+    fwd()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    loss, _ = fwd()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    routes = dict(ops.MLSTM_ROUTES)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fwd()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.count]
+    busy = sum(e.self_device_time_total for e in kern) / 1e6
+    mlstm = [e for e in kern if "mlstm_chunk" in e.key]
+    per_call = sum(e.self_device_time_total / e.count for e in mlstm) / 1e3
+    print(f"[{tag}] xlstm-350m f32 B=1 S=4096 forward: loss "
+          f"{float(loss):.6f}, wall {wall:.3f} s, device busy {busy:.3f} s "
+          f"({sum(e.count for e in kern)} kernel launches), mlstm_chunk "
+          f"{per_call:.4f} ms a call ({sum(e.count for e in mlstm)} CUDA "
+          f"launches of {len(mlstm)} kernels), routes {routes}", flush=True)
+    return routes == {"mlstm_chunk.wgmma": 0, "mlstm_chunk.simt": 21}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", type=Path, default=ROOT / "src")
+    ap.add_argument("--ops", default="gmm,flash,mlstm")
     ap.add_argument("--tiles", action="store_true")
+    ap.add_argument("--xlstm", action="store_true")
     args = ap.parse_args()
+    kinds = set(args.ops.split(","))
     if not torch.cuda.is_available():
         print("simt_timings: no CUDA device", file=sys.stderr)
         return 2
@@ -86,7 +149,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(13)
     ok = True
 
-    for label, E, C, D, Fo, xd, wd in GMM:
+    for label, E, C, D, Fo, xd, wd in GMM if "gmm" in kinds else ():
         x = torch.randn((E, C, D), generator=gen, device=dev).to(xd)
         w = (torch.randn((E, D, Fo), generator=gen, device=dev)
              * D ** -0.5).to(wd)
@@ -107,7 +170,7 @@ def main() -> int:
         del x, w
         torch.cuda.empty_cache()
 
-    for label, B, S, H, Hkv, D, dt in FLASH:
+    for label, B, S, H, Hkv, D, dt in FLASH if "flash" in kinds else ():
         q, k, v = (torch.randn((B, S, h, D), generator=gen, device=dev)
                    .to(dt) for h in (H, Hkv, Hkv))
         with ops._force_route("flash_attention", "simt"):
@@ -125,6 +188,29 @@ def main() -> int:
               f"{err:.3g}", flush=True)
         del q, k, v
         torch.cuda.empty_cache()
+
+    for label, B, S, H, dqk, dv, dt in MLSTM if "mlstm" in kinds else ():
+        q, k = (torch.randn((B, S, H, dqk), generator=gen, device=dev).to(dt)
+                for _ in range(2))
+        v = torch.randn((B, S, H, dv), generator=gen, device=dev).to(dt)
+        li = torch.randn((B, S, H), generator=gen, device=dev) - 5.0
+        lf = F.logsigmoid(torch.randn((B, S, H), generator=gen,
+                                      device=dev) + 3.0)
+        with ops._force_route("mlstm_chunk", "simt"):
+            got = ops.mlstm_chunk_model(q, k, v, li, lf).float()
+            want = ref.mlstm_model_ref(q, k, v, li, lf).float()
+            row = float(((got - want).norm(dim=-1)
+                         / want.norm(dim=-1)).max())
+            del got, want
+            ms = t_ms(lambda: ops.mlstm_chunk_model(q, k, v, li, lf), 10)
+        ok &= row <= (1e-4 if dt == F32 else 3e-2)
+        print(f"[{tag}] mlstm {label} {str(dt)[6:]}: simt {ms:.4f} ms, "
+              f"worst row {row:.3g}", flush=True)
+        del q, k, v, li, lf
+        torch.cuda.empty_cache()
+
+    if args.xlstm:
+        ok &= xlstm_forward(tag, dev)
 
     if args.tiles:
         stream = torch.cuda.current_stream().cuda_stream

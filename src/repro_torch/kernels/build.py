@@ -34,9 +34,9 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (_CSRC / "campaign_sweep.cu", _CSRC / "flash_attention.cu",
            _CSRC / "moe_gmm.cu", _CSRC / "mamba_scan.cu",
            _CSRC / "mlstm_chunk.cu", _CSRC / "mlstm_chunk_wgmma.cu")
-# included by flash_attention.cu, moe_gmm.cu, mamba_scan.cu and
-# mlstm_chunk_wgmma.cu
-HEADERS = (_CSRC / "hopper.cuh",)
+# hopper.cuh: included by every source but campaign_sweep.cu;
+# mlstm_gates.cuh (the mLSTM's gate pass): by both mLSTM sources
+HEADERS = (_CSRC / "hopper.cuh", _CSRC / "mlstm_gates.cuh")
 # IEEE division and square root, no fast math: the allocator's floors
 # depend on every f32 operation rounding on its own
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -126,15 +126,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # xc, dt, bm, cm, a, y, carry, types, B, S, di, N, seg_len, stream
     lib.mamba_scan.argtypes = [p, p, p, p, p, p, p, *[i] * 6, p]
     # q, k, v, logi, logf, o, strides, types, B, H, S, dqk, dv, chunk,
-    # scale, stream
-    lib.mlstm_chunk.argtypes = [p, p, p, p, p, p, p, *[i] * 7,
-                                ctypes.c_float, p]
-    # the same, bf16 q/k/v (the tensor-core route), then the scratch and
-    # the stream; the scratch's bytes from B, H, S, dqk, dv, chunk
-    lib.mlstm_chunk_wgmma.argtypes = [p, p, p, p, p, p, p, *[i] * 7,
-                                      ctypes.c_float, p, p]
-    lib.mlstm_chunk_wgmma_scratch.argtypes = [i] * 6
-    lib.mlstm_chunk_wgmma_scratch.restype = ctypes.c_longlong
+    # scale, scratch, stream; each route's scratch bytes from B, H, S,
+    # dqk, dv, chunk (the tensor-core route takes bf16 q/k/v)
+    for fn in (lib.mlstm_chunk, lib.mlstm_chunk_wgmma):
+        fn.argtypes = [p, p, p, p, p, p, p, *[i] * 7, ctypes.c_float, p, p]
+    for fn in (lib.mlstm_chunk_scratch, lib.mlstm_chunk_wgmma_scratch):
+        fn.argtypes = [i] * 6
+        fn.restype = ctypes.c_longlong
     for fn in (lib.campaign_alloc, lib.campaign_advance, lib.campaign_bill,
                lib.flash_attention, lib.flash_attention_wgmma, lib.moe_gmm,
                lib.moe_gmm_wgmma, lib.mamba_scan, lib.mlstm_chunk,

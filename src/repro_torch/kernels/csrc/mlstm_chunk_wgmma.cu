@@ -2,10 +2,10 @@
 //
 // Replaces the TPU kernel `mlstm_chunk_kernel` / `_mlstm_kernel`
 // (repro/kernels/mlstm_chunk.py:22-99) for bf16 q, k and v; mlstm_chunk.cu
-// (the CUDA-core kernel) serves f32 and the shapes this one refuses.  The
-// math is the TPU kernel's, from a zero state (C = 0, n = 0, m0 = 0, not
-// -inf): within a chunk of c steps, F = cumsum(logf), a = logi - F,
-// M = max(m0, cummax a), m_new = F + M,
+// (the same split on the CUDA cores) serves f32 and the shapes this one
+// refuses.  The math is the TPU kernel's, from a zero state (C = 0, n = 0,
+// m0 = 0, not -inf): within a chunk of c steps, F = cumsum(logf),
+// a = logi - F, M = max(m0, cummax a), m_new = F + M,
 //
 //   Dmask[t,j] = exp(a_j - M_t) for j <= t, else 0
 //   h_t = (sum_j Dmask[t,j] (q_t . k_j) v_j + exp(m0 - M_t) q_t C0)
@@ -25,7 +25,8 @@
 //      scans of the gates in parallel over chunks, then the scalar chain of
 //      m0 and Mc over the chunks, then every row's factors (a, M,
 //      exp(m0 - M), exp(-m_new), exp(a - Mc)) and every chunk's
-//      exp(m0 - Mc), into a small f32 scratch;
+//      exp(m0 - Mc), into a small f32 scratch (mlstm_gates.cuh, the code
+//      the CUDA-core route runs too);
 //   2. mlstm_chunk_wgmma_states, one block (one warpgroup) per (batch*head,
 //      64 dqk, 64 dv) tile: walks the chunks in order with its C tile in
 //      f32 registers, C <- exp(m0 - Mc) C + (k (.) w)^T v as wgmma m64n64k16
@@ -44,10 +45,10 @@
 //      rounded to bf16 as the register A operand of O = exp(m0 - M) O +
 //      S~ v (m64n128k16), and h = O / den stored in bf16.
 //
-// q k^T is computed once per 128 dv columns (dv / 128 times per chunk),
-// not once per 32 as in the CUDA-core kernel.  The new roundings are the
-// bf16 operands k (.) w, S~ and C_in; the gates, their scans, n, the
-// denominator and every accumulator are f32.
+// q k^T is computed once per 128 dv columns (dv / 128 times per chunk).
+// The roundings, against the CUDA-core route, are the bf16 operands
+// k (.) w, S~ and C_in; the gates, their scans, n, the denominator and
+// every accumulator are f32.
 //
 // Bound on an H100 SXM (data-sheet rates): bytes, for the function.  At
 // xlstm-350m's shape (B*H = 8, S = 4096, dqk = dv = 512, c = 128) the
@@ -70,81 +71,15 @@
 #include <math_constants.h>
 
 #include "hopper.cuh"
+#include "mlstm_gates.cuh"
 
 namespace {
 
-constexpr int kL = 128;                   // rows of a chunk tile
+using namespace mlstm;                    // dims, scratch, planes, gate pass
+
 constexpr int kBox = hopper::kBoxElems;   // 64 columns: one 128-byte row
 constexpr int kRowTile = kL * 128;        // bytes of a 128-row x 64 box
-constexpr int kGateThreads = 256;
-
-enum Stream { kQ = 0, kK, kV, kLi, kLf, kO, kStreams };
-// per-row factors, each a (B*H, chunks * kL) f32 plane
-enum Plane { kA = 0, kM, kWState, kFloor, kWEnd, kPlanes };
-// per-chunk values, 4 floats per (b*h, chunk)
-enum ChunkVal { kM0 = 0, kMc, kDecay, kChunkVals = 4 };
-
-struct Dims {
-  int B, H, S, dqk, dv, chunk, n_chunks, dqk_pad, dv_pad;
-};
-
-__host__ __device__ __forceinline__ long long round_up(long long x, int m) {
-  return (x + m - 1) / m * m;
-}
-
-Dims make_dims(int B, int H, int S, int dqk, int dv, int chunk) {
-  Dims d;
-  d.B = B;
-  d.H = H;
-  d.S = S;
-  d.dqk = dqk;
-  d.dv = dv;
-  d.chunk = chunk;
-  d.n_chunks = (S + chunk - 1) / chunk;
-  d.dqk_pad = static_cast<int>(round_up(dqk, kBox));
-  d.dv_pad = static_cast<int>(round_up(dv, 2 * kBox));
-  return d;
-}
-
-// the scratch, carved from one buffer the wrapper allocates
-struct Scratch {
-  float* planes;          // [kPlanes][B*H][n_chunks * kL]
-  float* chunks;          // [B*H][n_chunks][kChunkVals]
-  float* n_in;            // [B*H][n_chunks][dqk_pad], n entering each chunk
-  __nv_bfloat16* c_in;    // [B*H][n_chunks][dqk_pad][dv_pad], C entering
-};
-
-struct ScratchLayout {
-  long long planes, chunks, n_in, c_in, total;
-};
-
-ScratchLayout scratch_layout(const Dims& d) {
-  const long long bh = static_cast<long long>(d.B) * d.H;
-  ScratchLayout s;
-  s.planes = 0;
-  s.chunks = round_up(s.planes + 4LL * kPlanes * bh * d.n_chunks * kL, 1024);
-  s.n_in = round_up(s.chunks + 4LL * kChunkVals * bh * d.n_chunks, 1024);
-  s.c_in = round_up(s.n_in + 4LL * bh * d.n_chunks * d.dqk_pad, 1024);
-  s.total = s.c_in + 2LL * bh * d.n_chunks * d.dqk_pad * d.dv_pad;
-  return s;
-}
-
-Scratch carve(void* base, const Dims& d) {
-  const ScratchLayout l = scratch_layout(d);
-  char* p = static_cast<char*>(base);
-  Scratch s;
-  s.planes = reinterpret_cast<float*>(p + l.planes);
-  s.chunks = reinterpret_cast<float*>(p + l.chunks);
-  s.n_in = reinterpret_cast<float*>(p + l.n_in);
-  s.c_in = reinterpret_cast<__nv_bfloat16*>(p + l.c_in);
-  return s;
-}
-
-__device__ __forceinline__ float load(const void* p, int bf16,
-                                      long long i) {
-  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
-              : static_cast<const float*>(p)[i];
-}
+constexpr int kCBytes = 2;                // C entering each chunk: bf16
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -157,129 +92,11 @@ __device__ __forceinline__ uint32_t swz(int r, int ch) {
   return static_cast<uint32_t>(r * 128 + ((ch ^ (r & 7)) << 4));
 }
 
-// -- 1. the gate pass ----------------------------------------------------------
-
-struct GateParams {
-  const void* li;
-  const void* lf;
-  long long st_li[3], st_lf[3];     // (batch, head, step) strides
-  int li16, lf16;
-  Dims d;
-  Scratch s;
-};
+// -- 1. the gate pass (mlstm_gates.cuh) ---------------------------------------
 
 __global__ void __launch_bounds__(kGateThreads)
     mlstm_chunk_wgmma_gates(const GateParams p) {
-  const Dims& d = p.d;
-  const int bh = blockIdx.x;
-  const int b = bh / d.H, h = bh % d.H;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const long long rows = static_cast<long long>(d.n_chunks) * kL;
-  float* plane[kPlanes];
-  for (int q = 0; q < kPlanes; ++q)
-    plane[q] = p.s.planes + (q * static_cast<long long>(d.B) * d.H + bh) * rows;
-  float* cv = p.s.chunks + static_cast<long long>(bh) * d.n_chunks * kChunkVals;
-  const long long li0 = b * p.st_li[0] + h * p.st_li[1];
-  const long long lf0 = b * p.st_lf[0] + h * p.st_lf[1];
-
-  // (a) chunk-local scans, one warp per chunk: a = logi - F into kA, F into
-  // kFloor and the prefix max of a into kM (both rewritten in (c)); the
-  // chunk's F_end and max a into its kM0 / kMc slots
-  constexpr int kPer = kL / 32;
-  for (int c = warp; c < d.n_chunks; c += kGateThreads / 32) {
-    const int t0 = c * d.chunk;
-    const int len = min(d.chunk, d.S - t0);
-    float f[kPer], a[kPer];
-    float run = 0.0f;
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int r = lane * kPer + i;
-      float lfv = 0.0f, liv = 0.0f;
-      if (r < len) {
-        const long long at = static_cast<long long>(t0 + r);
-        lfv = load(p.lf, p.lf16, lf0 + at * p.st_lf[2]);
-        liv = load(p.li, p.li16, li0 + at * p.st_li[2]);
-      }
-      run += lfv;
-      f[i] = run;
-      a[i] = liv;
-    }
-    float incl = run;
-#pragma unroll
-    for (int off = 1; off < 32; off *= 2) {
-      const float y = __shfl_up_sync(0xffffffffu, incl, off);
-      if (lane >= off) incl += y;
-    }
-    float excl = __shfl_up_sync(0xffffffffu, incl, 1);
-    if (lane == 0) excl = 0.0f;
-    float mx = -CUDART_INF_F;
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      f[i] += excl;
-      a[i] -= f[i];
-      mx = fmaxf(mx, a[i]);
-    }
-    float mincl = mx;
-#pragma unroll
-    for (int off = 1; off < 32; off *= 2) {
-      const float y = __shfl_up_sync(0xffffffffu, mincl, off);
-      if (lane >= off) mincl = fmaxf(mincl, y);
-    }
-    float run_max = __shfl_up_sync(0xffffffffu, mincl, 1);
-    if (lane == 0) run_max = -CUDART_INF_F;
-    const long long row0 = static_cast<long long>(c) * kL;
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int r = lane * kPer + i;
-      run_max = fmaxf(run_max, a[i]);
-      plane[kA][row0 + r] = a[i];
-      plane[kFloor][row0 + r] = f[i];
-      plane[kM][row0 + r] = run_max;
-      if (r == len - 1) {
-        cv[c * kChunkVals + kM0] = f[i];        // F at the chunk's end
-        cv[c * kChunkVals + kMc] = run_max;     // max of a over the chunk
-      }
-    }
-  }
-  __syncthreads();
-
-  // (b) the scalar chain over the chunks: m0 entering each, Mc, exp(m0 - Mc)
-  if (tid == 0) {
-    float m0 = 0.0f;
-    for (int c = 0; c < d.n_chunks; ++c) {
-      float* v = cv + c * kChunkVals;
-      const float f_end = v[kM0];
-      const float mc = fmaxf(m0, v[kMc]);
-      v[kM0] = m0;
-      v[kMc] = mc;
-      v[kDecay] = expf(m0 - mc);
-      m0 = f_end + mc;                          // m_new at the chunk's end
-    }
-  }
-  __syncthreads();
-
-  // (c) every row's factors; rows past a chunk's end get neutral values
-  for (long long i = tid; i < rows; i += kGateThreads) {
-    const int c = static_cast<int>(i / kL), r = static_cast<int>(i % kL);
-    const int len = min(d.chunk, d.S - c * d.chunk);
-    const float m0 = cv[c * kChunkVals + kM0];
-    const float mc = cv[c * kChunkVals + kMc];
-    if (r < len) {
-      const float a = plane[kA][i];
-      const float M = fmaxf(m0, plane[kM][i]);
-      const float m_new = plane[kFloor][i] + M;
-      plane[kM][i] = M;
-      plane[kWState][i] = expf(m0 - M);
-      plane[kFloor][i] = expf(-m_new);
-      plane[kWEnd][i] = expf(a - mc);
-    } else {
-      plane[kA][i] = 0.0f;
-      plane[kM][i] = 0.0f;
-      plane[kWState][i] = 0.0f;
-      plane[kFloor][i] = 1.0f;
-      plane[kWEnd][i] = 0.0f;
-    }
-  }
+  gate_pass(p);
 }
 
 // -- 2. the states entering every chunk ---------------------------------------
@@ -327,7 +144,7 @@ __global__ void __launch_bounds__(kStThreads)
   const float* wend = p.s.planes +
       (kWEnd * static_cast<long long>(d.B) * d.H + bh) * rows;
   const float* cv = p.s.chunks + static_cast<long long>(bh) * nc * kChunkVals;
-  __nv_bfloat16* cin = p.s.c_in +
+  __nv_bfloat16* cin = static_cast<__nv_bfloat16*>(p.s.c_in) +
       static_cast<long long>(bh) * nc * d.dqk_pad * d.dv_pad;
   float* nin = p.s.n_in + static_cast<long long>(bh) * nc * d.dqk_pad;
 
@@ -685,7 +502,7 @@ extern "C" long long mlstm_chunk_wgmma_scratch(int B, int H, int S, int dqk,
   if (B < 1 || H < 1 || S < 1 || dqk < 1 || dv < 1 || chunk < 1 ||
       chunk > kL)
     return -1;
-  return scratch_layout(make_dims(B, H, S, dqk, dv, chunk)).total;
+  return scratch_layout(make_dims(B, H, S, dqk, dv, chunk), kCBytes).total;
 }
 
 // q/k (B*H, S, dqk) and v / o (B*H, S, dv) rows, logi / logf one value a
@@ -713,7 +530,7 @@ extern "C" int mlstm_chunk_wgmma(const void* q, const void* k, const void* v,
   }
   const Dims d = make_dims(B, H, S, dqk, dv, chunk);
   if (d.n_chunks > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const Scratch sc = carve(scratch, d);
+  const Scratch sc = carve(scratch, d, kCBytes);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int out_smem = kOutFixed + 4 * d.dqk_pad;
   static int out_configured = 0;            // the largest size set so far
@@ -748,18 +565,8 @@ extern "C" int mlstm_chunk_wgmma(const void* q, const void* k, const void* v,
   }
   if (err) return err;
 
-  GateParams gp;
-  gp.li = li;
-  gp.lf = lf;
-  for (int a = 0; a < 3; ++a) {
-    gp.st_li[a] = strides[3 * kLi + a];
-    gp.st_lf[a] = strides[3 * kLf + a];
-  }
-  gp.li16 = (types >> 3) & 1;
-  gp.lf16 = (types >> 4) & 1;
-  gp.d = d;
-  gp.s = sc;
-  mlstm_chunk_wgmma_gates<<<B * H, kGateThreads, 0, st>>>(gp);
+  mlstm_chunk_wgmma_gates<<<B * H, kGateThreads, 0, st>>>(
+      gate_params(li, lf, strides, types, d, sc));
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
 

@@ -32,8 +32,9 @@ launch path calls it.
                       (moe_gmm_wgmma on the tensor-core route)
   mamba_scan          mamba_scan        kernels/mamba_scan.py:51
   mlstm_chunk         mlstm_chunk       kernels/mlstm_chunk.py:74
-                      (mlstm_chunk_wgmma on the tensor-core route: the
-                      mlstm_chunk_wgmma_gates, _states and _outputs
+                      (the mlstm_chunk_kernel_gates, _states and _outputs
+                      kernels; mlstm_chunk_wgmma on the tensor-core route:
+                      the mlstm_chunk_wgmma_gates, _states and _outputs
                       kernels)
   (and mlstm_chunk_model, its model-layout entry point)
 """
@@ -483,7 +484,9 @@ def mamba_scan(xc: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
 
 # -- mLSTM chunkwise recurrence ----------------------------------------------
 
-_MAX_DQK = 512           # the kernel keeps C[:, 32 columns] in shared memory
+# q . n0 reads n entering the chunk from shared memory beside the CUDA-core
+# route's tiles; 512 is xlstm-350m's head, the widest the kernels are held to
+_MAX_DQK = 512
 _MAX_CHUNK = 128         # rows of the kernel's intra-chunk product
 
 
@@ -542,20 +545,18 @@ def _launch_mlstm(q, k, v, logi, logf, o, strides, B, H, S, chunk) -> None:
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), logi.data_ptr(),
             logf.data_ptr(), o.data_ptr(), st, types, B, H, S, dqk, dv,
             chunk, dqk ** -0.5)
-    if route == "wgmma":
-        # the gate factors and the state entering every chunk (C in bf16,
-        # n in f32), carved by the kernel from one 1024-byte-aligned block
-        nbytes = lib.mlstm_chunk_wgmma_scratch(B, H, S, dqk, dv, chunk)
-        if nbytes < 0:
-            raise ValueError(f"{op}: no scratch for B={B} H={H} S={S} "
-                             f"dqk={dqk} dv={dv} chunk={chunk}")
-        scratch = torch.empty(nbytes + 1024, dtype=torch.uint8,
-                              device=q.device)
-        base = -scratch.data_ptr() % 1024 + scratch.data_ptr()
-        err = lib.mlstm_chunk_wgmma(*args, base, _stream(q))
-    else:
-        err = lib.mlstm_chunk(*args, _stream(q))
-    _raise_on(err, op)
+    size, launch = (lib.mlstm_chunk_wgmma_scratch, lib.mlstm_chunk_wgmma) \
+        if route == "wgmma" else (lib.mlstm_chunk_scratch, lib.mlstm_chunk)
+    # the gate factors and the state entering every chunk (C in bf16 on
+    # the tensor cores, f32 on the CUDA cores; n in f32), carved by the
+    # kernel from one 1024-byte-aligned block
+    nbytes = size(B, H, S, dqk, dv, chunk)
+    if nbytes < 0:
+        raise ValueError(f"{op}: no scratch for B={B} H={H} S={S} "
+                         f"dqk={dqk} dv={dv} chunk={chunk}")
+    scratch = torch.empty(nbytes + 1024, dtype=torch.uint8, device=q.device)
+    base = -scratch.data_ptr() % 1024 + scratch.data_ptr()
+    _raise_on(launch(*args, base, _stream(q)), op)
     LAUNCHES[op] += 1
     MLSTM_ROUTES[f"{op}.{route}"] += 1
 
@@ -568,8 +569,8 @@ def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     from a zero state.  S must be a multiple of min(block_s, S), as the
     JAX wrapper asserts; the kernel runs chunks of min(block_s, S, 128)
     steps (the chunk size changes only the rounding).  On the card
-    ``mlstm_route`` picks the kernel: the two-phase tensor-core one for
-    bf16 q/k/v, the CUDA-core one otherwise."""
+    ``mlstm_route`` picks the route of the two-phase kernel: the tensor
+    cores for bf16 q/k/v, the CUDA cores otherwise."""
     op = "mlstm_chunk"
     _check_mlstm(op, q, k, v, logi, logf, 3)
     BH, S, _ = q.shape

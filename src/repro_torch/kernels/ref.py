@@ -154,7 +154,7 @@ def mlstm_model_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def mlstm_chunkwise_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         logi: torch.Tensor, logf: torch.Tensor, *,
                         chunk: int = 128) -> torch.Tensor:
-    """The two-phase algorithm of the tensor-core mLSTM kernel, in plain
+    """The two-phase algorithm of the mLSTM kernel's two routes, in plain
     PyTorch: q/k (BH,S,dqk), v (BH,S,dv), logi/logf (BH,S,1) -> h
     (BH,S,dv) in q's dtype, from a zero state, any S (a ragged last
     chunk is padded with zero steps).
@@ -165,10 +165,12 @@ def mlstm_chunkwise_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
        (k w)^T v and n <- exp(m0 - Mc) n + sum_j k_j w_j;
     3. every chunk's outputs from its entering state.
 
-    With bf16 q the kernel's roundings are applied where it rounds: k w
-    (the state update's operand), the masked scores S~ (the operand of
-    S~ v) and C entering each chunk (the operand of q C), each to bf16;
-    the gates, n, the denominator and every sum stay f32."""
+    With bf16 q the tensor-core route's roundings are applied where it
+    rounds: k w (the state update's operand), the masked scores S~ (the
+    operand of S~ v) and C entering each chunk (the operand of q C), each
+    to bf16; the gates, n, the denominator and every sum stay f32.  The
+    CUDA-core route rounds nothing but h: its mirror is this function on
+    f32-widened inputs."""
     f32 = torch.float32
     BH, S, dqk = q.shape
     dv = v.shape[2]
