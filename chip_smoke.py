@@ -15,12 +15,23 @@ Phases (any failure raises and exits non-zero with no result line):
              allocator and advance exactly equal, bill within 1e-6
              relative; kernel and plain version timed with CUDA events;
   3. main    ``sweep(planning_grid(), range(17))`` at paper scale (1,020
-             lanes x 1,344 ticks), once through the kernels and once
-             through the plain versions on the same device and draws:
-             integer counters equal in every lane, cost and accelerator
-             hours within 1e-5 relative, launch counts 2N / N / N / N;
+             lanes x 1,344 ticks) on each route of the engine, on the
+             same device and draws: "fused" (the default: one
+             campaign_sweep launch), "ops" (the eager tick loop through
+             the four per-op kernels, forced) and "plain"
+             (use_kernels=False): every fused lane's integer counters,
+             by_provider and events_fired equal both others', cost,
+             accelerator hours and egress within 1e-5 relative; launch
+             counts 1 on fused and 2N / N / N / N on ops; then the
+             persistent kernel against its plain version on the grid's
+             packed arguments (integers exact, f32 within 1e-6 relative)
+             with its time per sweep and per tick, device time, plain
+             version's time and bound; the fused run's planner / run /
+             results split; then a planted case whose Poisson rates pass
+             8 (the draw's normal branch), the same three routes;
   4. profile the device's busy share of a 24 h grid sweep at the same
-             widths (torch.profiler kernel time over wall time);
+             widths on the fused and the ops route (torch.profiler kernel
+             time over wall time);
   5. data    the data-plane golden spec at 64 seeds, the same checks as 3;
   6. flash   the flash attention kernel against its plain version at the
              yi-9b shape (B=2, S=4096, H=32, Hkv=4, D=128, causal; and
@@ -114,7 +125,9 @@ Phases (any failure raises and exits non-zero with no result line):
              "wgmma" or "simt"; flash attention and moe_gmm have one entry
              per route, the simt one, "flash_attention.simt",
              "moe_gmm.simt" and "mlstm_chunk.simt", at the f32 forwards'
-             shapes and launches),
+             shapes and launches; the four per-op campaign kernels with
+             their launches on the ops route, and "campaign_sweep", the
+             persistent kernel, with its time per sweep),
              the nvidia-smi line, and last
              ``{"ok": true, "device": {...}}``.
 
@@ -145,6 +158,9 @@ SFU_PER_CLOCK_PER_SM = 16        # special-function unit results (exp)
 SMS = 132
 BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
 CU_SOURCE = "src/repro_torch/kernels/csrc/campaign_sweep.cu"
+SWEEP_SOURCE = "src/repro_torch/kernels/csrc/campaign_sweep_fused.cu"
+# the JAX engine's scan, whose step calls the four kernels of REPLACES
+SWEEP_REPLACES = "src/repro/core/sweep_jax.py:236"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 REPLACES = {
     "campaign_preempt": "src/repro/kernels/campaign_sweep.py:69",
@@ -391,11 +407,19 @@ def check_kernels(dev, shapes) -> dict:
     return out
 
 
-# -- phases 3 and 4: a sweep through the kernels and the plain versions ----
+# -- phases 3 and 4: a sweep on each route ---------------------------------
+
+# the per-op wrappers' launches on the "ops" route, per tick
+OPS_PER_TICK = {"campaign_preempt": 2, "campaign_match": 1,
+                "campaign_advance": 1, "campaign_bill": 1}
+
 
 def drive(label, specs, seeds):
-    """One sweep through the kernels (launch counts read around it) and
-    one through the plain versions, compared lane by lane."""
+    """One sweep on each route of the engine, same device and draws:
+    "fused" (the default on the card: one campaign_sweep launch), "ops"
+    (the eager tick loop through the per-op kernels, forced) and "plain"
+    (use_kernels=False).  Launch counts are read around each kernel
+    route's run; every fused lane is compared with both others."""
     from repro_torch.core.api import sweep
     from repro_torch.core.sweep_result import _prepare
     from repro_torch.kernels import ops
@@ -407,81 +431,173 @@ def drive(label, specs, seeds):
     while now < specs[0].duration_h:
         n_ticks, now = n_ticks + 1, now + specs[0].dt_h
     lanes = len(specs) * len(seeds)
+    zero = {name: 0 for name in ops.LAUNCHES}
 
-    ops.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    got = sweep(specs, seeds)
-    torch.cuda.synchronize()
-    t_kernel = time.perf_counter() - t0
-    launches = dict(ops.LAUNCHES)
+    def run(route):
+        ops.reset_launches()
+        split = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if route == "plain":
+            res = sweep(specs, seeds, use_kernels=False, timings=split)
+        else:
+            with ops._force_route("campaign_sweep", route):
+                res = sweep(specs, seeds, timings=split)
+        torch.cuda.synchronize()
+        return (res, time.perf_counter() - t0, dict(ops.LAUNCHES),
+                dict(ops.SWEEP_ROUTES), split)
 
-    t0 = time.perf_counter()
-    want = sweep(specs, seeds, use_kernels=False)
-    torch.cuda.synchronize()
-    t_plain = time.perf_counter() - t0
+    got, t_fused, launches, routes, split = run("fused")
+    if launches != {**zero, "campaign_sweep": 1} or \
+            routes != {"campaign_sweep.fused": 1, "campaign_sweep.ops": 0}:
+        fail(f"{label} fused: launches {launches}, routes {routes}; "
+             "expected one campaign_sweep launch and no per-op launch")
+    by_ops, t_ops, launches_ops, routes_ops, _ = run("ops")
+    expect = {**zero, **{k: n * n_ticks for k, n in OPS_PER_TICK.items()}}
+    if launches_ops != expect or routes_ops["campaign_sweep.ops"] != 1:
+        fail(f"{label} ops: launches {launches_ops}, expected {expect}")
+    plain, t_plain, launches_plain, _, _ = run("plain")
+    if any(launches_plain.values()):
+        fail(f"{label} plain: launches {launches_plain}")
 
-    expect = {"campaign_preempt": 2 * n_ticks, "campaign_match": n_ticks,
-              "campaign_advance": n_ticks, "campaign_bill": n_ticks,
-              "flash_attention": 0, "moe_gmm": 0, "mamba_scan": 0,
-              "mlstm_chunk": 0}
-    if launches != expect:
-        fail(f"{label}: launches {launches}, expected {expect}")
     if len(got.rows) != lanes:
         fail(f"{label}: {len(got.rows)} rows for {lanes} lanes")
-    for a, b in zip(got.rows, want.rows):
-        lane = (a["scenario"], a["seed"])
-        for k in INT_COUNTERS:
-            if a[k] != b[k]:
-                fail(f"{label} {lane}: {k} {a[k]} != plain {b[k]}")
-        if a["by_provider"] != b["by_provider"]:
-            fail(f"{label} {lane}: by_provider differs")
-        if a["events_fired"] != b["events_fired"]:
-            fail(f"{label} {lane}: events_fired differs")
-        for k in ("cost", "accel_hours", "egress_usd"):
-            if not math.isfinite(a[k]) or \
-                    abs(a[k] - b[k]) > REL * max(abs(b[k]), 1.0):
-                fail(f"{label} {lane}: {k} {a[k]} vs plain {b[k]}")
+    for other, name in ((by_ops, "ops"), (plain, "plain")):
+        for a, b in zip(got.rows, other.rows):
+            lane = (a["scenario"], a["seed"])
+            for k in INT_COUNTERS:
+                if a[k] != b[k]:
+                    fail(f"{label} {lane}: {k} {a[k]} != {name} {b[k]}")
+            if a["by_provider"] != b["by_provider"]:
+                fail(f"{label} {lane}: by_provider differs from {name}")
+            if a["events_fired"] != b["events_fired"]:
+                fail(f"{label} {lane}: events_fired differs from {name}")
+            for k in ("cost", "accel_hours", "egress_usd"):
+                if not math.isfinite(a[k]) or \
+                        abs(a[k] - b[k]) > REL * max(abs(b[k]), 1.0):
+                    fail(f"{label} {lane}: {k} {a[k]} vs {name} {b[k]}")
+    for a in got.rows:
         if not (a["cost"] > 0 and a["accel_hours"] > 0
                 and a["jobs_finished"] > 0):
-            fail(f"{label} {lane}: empty campaign {a}")
+            fail(f"{label} {(a['scenario'], a['seed'])}: empty campaign {a}")
     costs = [r["cost"] for r in got.rows]
-    log(f"[{label}] {lanes} lanes x {n_ticks} ticks: kernels "
-        f"{t_kernel:.3f} s ({lanes / t_kernel:.1f} campaigns/s, "
-        f"{1e3 * t_kernel / n_ticks:.3f} ms/tick); plain "
-        f"{t_plain:.3f} s ({lanes / t_plain:.1f} campaigns/s, "
-        f"{1e3 * t_plain / n_ticks:.3f} ms/tick); cost "
-        f"${min(costs):,.0f}..${max(costs):,.0f}; launches {launches}")
-    return {"lanes": lanes, "ticks": n_ticks, "kernel_s": t_kernel,
-            "plain_s": t_plain, "launches": launches}
+
+    def rate(t):
+        return (f"{t:.3f} s ({lanes / t:.1f} campaigns/s, "
+                f"{1e3 * t / n_ticks:.3f} ms/tick)")
+    log(f"[{label}] {lanes} lanes x {n_ticks} ticks: fused {rate(t_fused)}; "
+        f"ops {rate(t_ops)}; plain {rate(t_plain)}; cost "
+        f"${min(costs):,.0f}..${max(costs):,.0f}; fused launches "
+        f"{launches['campaign_sweep']}, ops launches "
+        f"{ {k: launches_ops[k] for k in OPS_PER_TICK} }")
+    return {"lanes": lanes, "ticks": n_ticks, "fused_s": t_fused,
+            "ops_s": t_ops, "plain_s": t_plain, "launches": launches,
+            "launches_ops": launches_ops, "split": split}
 
 
-def profile_window(specs, seeds) -> None:
-    """Device busy share of a sweep at main-path widths: the sum of
-    CUDA kernel time in a profiled run over an unprofiled run's wall
-    time (host clock, ended by a synchronize)."""
-    from repro_torch.core.api import sweep
-    sweep(specs, seeds)
+def hot_spec():
+    """A planted case whose Poisson rates pass 8, so the draw takes its
+    rounded-normal branch (torch.special.ndtri), which the planning grid
+    (rates up to ~0.3) never reaches: 600 live in one region at 0.3
+    preemptions an hour, tripled at full use, a rate of 135 a tick."""
+    from repro_torch.core.spec import (CampaignSpec, ProviderSpec,
+                                       RegionSpec, SetTarget)
+    hot = ProviderSpec(name="hot", accel="t4", spot_price_per_day=2.0,
+                       ondemand_price_per_day=6.0,
+                       regions=(RegionSpec("r1", 600, 0.3),
+                                RegionSpec("r2", 400, 0.2)))
+    return CampaignSpec(name="hot", providers=(hot,),
+                        timeline=(SetTarget(0.0, 800),), duration_h=48.0)
+
+
+# f32 operations of one (lane, tick, group) that every draw needs,
+# whatever its count: util (1), hazard (4), lam (1), exp (1), the first
+# CDF comparison (1), the bill's product and sum (2) and the advance's
+# f32-free integer pass (0); a lower bound on the work, so the bound it
+# gives is a least time
+SWEEP_F32_OPS = 10
+
+
+def check_sweep(dev, specs, seeds) -> dict:
+    """The persistent sweep kernel against its plain version on the main
+    grid's packed arguments: integer fields and flags exactly, f32 fields
+    within 1e-6 relative; its time per sweep (CUDA events), device time
+    (profiler), the plain version's time and the bound."""
+    from repro_torch.core.sweep_result import _prepare
+    from repro_torch.core.sweep_torch import TorchSweepEngine
+    from repro_torch.kernels import ops, ref
+    eng = TorchSweepEngine([_prepare(s, sd)[1] for s in specs for sd in seeds],
+                           device=dev)
+    args = eng.pack_args()
+    kw = dict(dt=float(eng.consts["dt"]), nat_any=eng.nat_any,
+              dp_active=eng.dp_active, dp_staging=eng.dp_staging)
+    got = ops.campaign_sweep(args, **kw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sweep(specs, seeds)
+    want = ref.campaign_sweep_ref(args, **kw)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    err = 0.0
+    for k, v in want.items():
+        if v.dtype.is_floating_point:
+            d = (got[k] - v).abs()
+            err = max(err, float(d.max()))
+            if float((d / v.abs().clamp(min=1e-30)).max()) > 1e-6:
+                fail(f"campaign_sweep: {k} differs from the plain version")
+        elif not torch.equal(got[k], v):
+            fail(f"campaign_sweep: {k} differs from the plain version")
+    nb = nbytes(*[t for t in args.values() if t is not None],
+                *got.values())
+    b, how = bound(nb, SWEEP_F32_OPS * eng.B * eng.N * eng.G)
+    res = {"max_abs_err": err,
+           "ms": time_ms(lambda: ops.campaign_sweep(args, **kw), iters=5,
+                         warmup=1),
+           "plain_ms": plain_ms,
+           "device_ms": device_ms(lambda: ops.campaign_sweep(args, **kw),
+                                  "campaign_sweep_kernel", calls=3),
+           "bound_ms": b, "bound_by": how, "library_ms": None,
+           "ticks": eng.N, "bytes": nb}
+    dev_txt = "not measured" if res["device_ms"] is None \
+        else f"{res['device_ms']:.3f} ms"
+    log(f"[sweep kernel] {eng.B} lanes x {eng.N} ticks: exact integers, "
+        f"f32 max abs err {err:.3g}; {res['ms']:.3f} ms per sweep "
+        f"({1e3 * res['ms'] / eng.N:.2f} us per tick; device {dev_txt}); "
+        f"plain {plain_ms:.1f} ms; bound {1e3 * b:.3f} us by {how} "
+        f"({nb} bytes moved once); latency-bound by design")
+    return res
+
+
+def profile_window(specs, seeds, route) -> None:
+    """Device busy share of a sweep on one route at main-path widths: the
+    sum of CUDA kernel time in a profiled run over an unprofiled run's
+    wall time (host clock, ended by a synchronize)."""
+    from repro_torch.core.api import sweep
+    from repro_torch.kernels import ops
+
+    def run():
+        with ops._force_route("campaign_sweep", route):
+            sweep(specs, seeds)
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    kern = profiled(lambda: sweep(specs, seeds))
+    kern = profiled(run)
     if not kern:
-        log("[profile] device time not measured: the profiler trace "
-            "holds no CUDA kernels")
+        log(f"[profile {route}] device time not measured: the profiler "
+            "trace holds no CUDA kernels")
         return
     busy_s = sum(e.self_device_time_total for e in kern) / 1e6
     n = sum(e.count for e in kern)
     ticks = round(specs[0].duration_h / specs[0].dt_h)
-    log(f"[profile] {len(specs) * len(seeds)} lanes x {ticks} ticks: wall "
-        f"{wall:.3f} s, device busy {busy_s:.3f} s "
+    log(f"[profile {route}] {len(specs) * len(seeds)} lanes x {ticks} "
+        f"ticks: wall {wall:.3f} s, device busy {busy_s:.3f} s "
         f"({100 * busy_s / wall:.1f}% of wall), {n} kernel launches "
-        f"({n / ticks:.0f} per tick, mean "
+        f"({n / ticks:.2f} per tick, mean "
         f"{1e6 * busy_s / n:.2f} us device time each)")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"[profile]   {e.self_device_time_total / 1e3:9.1f} ms "
+        log(f"[profile {route}]   {e.self_device_time_total / 1e3:9.1f} ms "
             f"{e.count:7d}x  {e.key[:90]}")
 
 
@@ -1402,8 +1518,16 @@ def main() -> int:
             f"{1e3 * k['bound_ms']:.3f} us by {k['bound_by']})")
 
     main_run = drive("main", grid, list(range(17)))
-    profile_window([replace(s, duration_h=24.0) for s in grid],
-                   list(range(17)))
+    sweep_kernel = check_sweep(dev, grid, list(range(17)))
+    split = main_run["split"]
+    log(f"[split] main, fused route: prepare {split['prepare']:.4f} s, "
+        f"planner {split['planner']:.4f} s, run {split['run']:.4f} s (the "
+        f"kernel's device time {sweep_kernel['device_ms']} ms of it), "
+        f"results {split['results']:.4f} s; wall {main_run['fused_s']:.4f} s")
+    drive("hot", [hot_spec()], list(range(16)))
+    for route in ("fused", "ops"):
+        profile_window([replace(s, duration_h=24.0) for s in grid],
+                       list(range(17)), route)
     dp_spec = CampaignSpec.from_json(
         (ROOT / "tests" / "data" / "dataplane.spec.json").read_text())
     drive("dataplane", [dp_spec], list(range(64)))
@@ -1487,8 +1611,12 @@ def main() -> int:
     report = {"kernels": [
         {"name": name, "route": "cuda", "cuda_route": "simt",
          "source": CU_SOURCE, "replaces": REPLACES[name],
-         "launches": main_run["launches"][name],
+         "launches": main_run["launches_ops"][name],
          **kernels[name]} for name in REPLACES] + [
+        {"name": "campaign_sweep", "route": "cuda", "cuda_route": "simt",
+         "source": SWEEP_SOURCE, "replaces": SWEEP_REPLACES,
+         "launches": main_run["launches"]["campaign_sweep"],
+         **{key: sweep_kernel[key] for key in keys}}] + [
         {"name": "flash_attention", "route": "cuda", "cuda_route": "wgmma",
          "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
          "launches": fwd["wgmma"]["launches"],

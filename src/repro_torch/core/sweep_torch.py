@@ -7,11 +7,16 @@ instances occupy each cell: ``idle``/``pdead`` counts per (lane, group),
 ``busy`` job counts per (lane, group, step), the CE queue as per-lane
 checkpoint-level counts, and budgets and counters as lane columns.
 Every tick is a fixed-shape sequence of integer reductions over those
-planes, run eagerly as a Python loop over N ticks with the state in a
-dict of device tensors.  The hot per-tick ops (preemption fan-out, the
-queue->pilot matcher, progress advance, billing) go through the
-wrappers in ``kernels/ops.py``: hand-written CUDA kernels for CUDA
-tensors, their plain versions for CPU tensors.
+planes.  On the card the whole sweep of a batch is one launch of the
+persistent CUDA kernel behind ``ops.campaign_sweep`` (the "fused"
+route: every lane's state stays on the chip for all N ticks).  The
+eager routes run the ticks as a Python loop with the state in a dict of
+device tensors: "ops" sends the hot per-tick ops (preemption fan-out,
+the queue->pilot matcher, progress advance, billing) through their
+wrappers in ``kernels/ops.py`` (CUDA kernels for CUDA tensors, the
+plain versions for CPU ones, which is the CPU's route), "plain"
+(``use_kernels=False``) calls the plain versions.  ``ops.sweep_route``
+picks the route.
 
 **The planner.**  The spec timeline is compiled through the
 ``core/timeline.py`` registry into segments of constant control
@@ -26,9 +31,10 @@ and is handled in the loop with ``capped`` / ``cap_pending`` flags.
 **Randomness.**  Each lane draws its per-(tick, group) uniforms from
 Philox-4x32-10 keyed by the lane's seed, counter (tick, group, 0, 0),
 written in int64 tensor ops so CPU and GPU give the same bits and a
-lane's draws do not depend on which other lanes share its batch.  The
-``uniforms`` hook replaces those draws (a test feeds the JAX engine's
-threefry uniforms through it).
+lane's draws do not depend on which other lanes share its batch (the
+fused kernel computes the same bits itself).  The ``uniforms`` hook
+replaces those draws (a test feeds the JAX engine's threefry uniforms
+through it; the fused route reads them as one [N, B, G] buffer).
 
 **Equivalence tier: statistical.**  Like the JAX engine, this one is
 held to the bit-identical batched engine by mean/p5/p95 bands, and fed
@@ -38,6 +44,7 @@ matches the other engines' records.
 """
 from __future__ import annotations
 
+import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -48,9 +55,12 @@ from repro_torch.core.spec import LEDGER_THRESHOLDS, CampaignSpec
 from repro_torch.core.sweep_result import _Lane, _prepare
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.ref import philox4x32, philox_uniforms
+from repro_torch.kernels.ref import poisson as _poisson
 
-__all__ = ["TorchLaneOps", "TorchSweepEngine", "philox_uniforms",
-           "resolve_device", "run_torch_detailed", "run_torch"]
+__all__ = ["TorchLaneOps", "TorchSweepEngine", "philox4x32",
+           "philox_uniforms", "resolve_device", "run_torch_detailed",
+           "run_torch"]
 
 I32, F32 = torch.int32, torch.float32
 
@@ -154,79 +164,6 @@ class TorchLaneOps:
         gs = self._dp_groups_by_base.get(str(provider).split("/", 1)[0])
         if gs is not None:
             self.flush_edge[gs] = True
-
-
-# -- randomness ------------------------------------------------------------
-
-_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
-_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
-_U32 = 0xFFFFFFFF
-
-
-def _mulhilo(a: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(hi, lo) 32-bit halves of ``a * m`` for int64 ``a`` in
-    [0, 2**32): the product is split at 16 bits of ``a`` so no
-    intermediate leaves int64."""
-    p_lo = (a & 0xFFFF) * m                # < 2**48
-    p_hi = (a >> 16) * m                   # < 2**48
-    s = (p_lo >> 16) + p_hi                # product == s * 2**16 + low16
-    return s >> 16, ((s & 0xFFFF) << 16) | (p_lo & 0xFFFF)
-
-
-def philox4x32(ctr, key, rounds: int = 10):
-    """Philox-4x32 (Salmon et al., SC'11) on int64 tensors holding
-    uint32 values: ``ctr`` four words, ``key`` two; returns four words."""
-    c0, c1, c2, c3 = ctr
-    k0, k1 = key
-    for _ in range(rounds):
-        hi0, lo0 = _mulhilo(c0, _PHILOX_M[0])
-        hi1, lo1 = _mulhilo(c2, _PHILOX_M[1])
-        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
-        k0 = (k0 + _PHILOX_W[0]) & _U32
-        k1 = (k1 + _PHILOX_W[1]) & _U32
-    return c0, c1, c2, c3
-
-
-def philox_uniforms(seeds: torch.Tensor, ticks: torch.Tensor, G: int
-                    ) -> torch.Tensor:
-    """[T, B, G] float32 uniforms in [0, 1) for lane seeds ``seeds``
-    (B,) int64 at tick indices ``ticks`` (T,) int64: word 0 of
-    Philox-4x32-10 at key (seed low, seed high), counter
-    (tick, group, 0, 0), top 24 bits."""
-    dev = seeds.device
-    T, B = ticks.shape[0], seeds.shape[0]
-    shape = (T, B, G)
-    c0 = ticks.view(T, 1, 1).expand(shape)
-    c1 = torch.arange(G, dtype=torch.int64, device=dev).view(1, 1, G) \
-        .expand(shape)
-    zero = torch.zeros(shape, dtype=torch.int64, device=dev)
-    k0 = (seeds & _U32).view(1, B, 1).expand(shape)
-    k1 = ((seeds >> 32) & _U32).view(1, B, 1).expand(shape)
-    x0, _x1, _x2, _x3 = philox4x32((c0, c1, zero, zero), (k0, k1))
-    return (x0 >> 8).to(F32) * (1.0 / (1 << 24))
-
-
-def _poisson(u: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
-    """Poisson(lam) quantile of the uniform draw ``u``: truncated
-    inverse CDF for small lam, a rounded normal approximation above 8
-    (the JAX engine's ``_poisson``, op for op)."""
-    K = 24
-    p = torch.exp(-torch.clamp(lam, max=30.0))
-    cdf = p
-    kk = (u > cdf).to(I32)
-    for j in range(1, K):
-        p = p * lam / j
-        cdf = cdf + p
-        kk = kk + (u > cdf).to(I32)
-    z = torch.special.ndtri(torch.clamp(u, _U_LO, _U_HI))
-    k_norm = torch.round(lam + torch.sqrt(torch.clamp(lam, min=0.0)) * z)
-    return torch.where(lam > 8.0, torch.clamp(k_norm, min=0.0).to(I32), kk)
-
-
-# f32-representable clip bounds (the values JAX's weak-typed
-# ``clip(u, 1e-7, 1 - 1e-7)`` rounds to)
-_U_LO = float(np.float32(1e-7))
-_U_HI = float(np.float32(1.0 - 1e-7))
 
 
 # -- the engine ------------------------------------------------------------
@@ -375,6 +312,11 @@ class TorchSweepEngine:
         M_jw = np.zeros((B, L + 1, W), np.float32)
         M_jw[np.arange(B)[:, None], np.arange(L + 1)[None, :],
              w0_of_j] = 1.0
+        # the same maps as int32 indices (the persistent kernel scatters
+        # counts by them): the level of each step, the step each queue
+        # slice enters at, and (data plane) each slice's stage-in entry
+        self.index = {"lvl_of_w": lvl_of_w.astype(np.int32),
+                      "w0_of_j": w0_of_j.astype(np.int32)}
 
         # -- data plane: stage-in as a count-axis front extension.  A
         # matched job enters at ext position S_max + w0 - S and reaches
@@ -433,10 +375,13 @@ class TorchSweepEngine:
             E_hit = np.zeros((B, G, L + 1, W_ext), np.float32)
             E_hit[bi, gi, ji, pos_hit] = 1.0
             E_miss = np.zeros((n_seg, B, G, L + 1, W_ext), np.float32)
+            pos_miss = S_max + w0_of_j[None, :, None, :] \
+                - S_miss[:, :, :, None]                      # [S,B,G,L+1]
             for s in range(n_seg):
-                pos_miss = S_max + w0_of_j[:, None, :] \
-                    - S_miss[s][:, :, None]
-                E_miss[s][bi, gi, ji, pos_miss] = 1.0
+                E_miss[s][bi, gi, ji, pos_miss[s]] = 1.0
+            self.index.update(lvl_of_w=lvl_of_ext.astype(np.int32),
+                              pos_hit=pos_hit.astype(np.int32),
+                              pos_miss=pos_miss.astype(np.int32))
             self.planes["S_miss"] = S_miss
             self.planes["E_miss"] = E_miss
             self.planes["dp_flush"] = dp_flush_sbg
@@ -506,10 +451,64 @@ class TorchSweepEngine:
             return cache[b0][i - b0]
         return hook
 
+    def _overhead_tick(self, dev) -> torch.Tensor:
+        """The flat infra overhead billed each tick, per lane."""
+        oh = torch.as_tensor(self.consts["overhead"], device=dev) \
+            * float(self.consts["dt"]) / 24.0
+        return torch.where(oh > 0, oh, 0.0)
+
+    def pack_args(self, uniforms: Optional[UniformHook] = None
+                  ) -> Dict[str, Optional[torch.Tensor]]:
+        """The arguments of ``ops.campaign_sweep`` for this batch, on the
+        engine's device: the per-segment planes, the per-lane and
+        per-group constants, the index planes, and either the lanes'
+        seeds (the kernel draws Philox itself) or, given a ``uniforms``
+        hook, its N draws stacked into one [N, B, G] buffer."""
+        dev = self.device
+        pl, k, ix = self.planes, self.consts, self.index
+
+        def t(a):
+            return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+        staging = self.dp_staging
+        args = {"seg_of_tick": t(self.seg_of_tick),
+                "is_seg_start": t(self.is_seg_start),
+                **{name: t(pl[name]) for name in (
+                    "cap", "rate", "outage", "floor", "downscale", "minq",
+                    "n_unc", "n_cap")},
+                "origin_up": t(pl["origin_up"]) if self.dp_active else None,
+                "dp_flush": t(pl["dp_flush"]) if staging else None,
+                "S_miss": t(pl["S_miss"]) if staging else None,
+                "pos_miss": t(ix["pos_miss"]) if staging else None,
+                **{name: t(k[name]) for name in (
+                    "pre_rate_g", "pre_scale_g", "nat_g", "prov_onehot",
+                    "budget")},
+                "finmask": t(k["finmask_rg"][::self.G]),
+                "lvl_of_w": t(ix["lvl_of_w"]), "w0_of_j": t(ix["w0_of_j"]),
+                "pos_hit": t(ix["pos_hit"]) if staging else None,
+                "overhead_tick": self._overhead_tick(dev),
+                "thresholds": torch.tensor(LEDGER_THRESHOLDS, dtype=F32,
+                                           device=dev),
+                **{name: t(k[name]) if staging else None for name in (
+                    "dp_r_g", "dp_loss_g", "dp_has_g", "dp_usd_miss_g",
+                    "S_hit_g")}}
+        if uniforms is None:
+            args["seeds"] = t(k["seeds"].astype(np.int64))
+            args["uniforms"] = None
+        else:
+            args["seeds"] = None
+            args["uniforms"] = torch.stack([
+                torch.as_tensor(uniforms(i), dtype=F32, device=dev)
+                for i in range(self.N)])
+        return args
+
     def run(self, uniforms: Optional[UniformHook] = None
             ) -> "TorchSweepEngine":
         """Tick all N ticks on the engine's device; ``uniforms(i)``
-        (-> [B, G] float32) replaces the engine's own draws."""
+        (-> [B, G] float32) replaces the engine's own draws.  The route
+        is ``ops.sweep_route``'s: "fused" runs every tick in one
+        ``ops.campaign_sweep`` launch, "ops" and "plain" the eager tick
+        loop through the per-tick wrappers or their plain versions.  All
+        three end in the same settle."""
         # f32 products of counts up to ~4,000 must not round to TF32
         torch.backends.cuda.matmul.allow_tf32 = False
         dev = self.device
@@ -518,6 +517,30 @@ class TorchSweepEngine:
         self._k = {k: torch.as_tensor(np.asarray(v), device=dev)
                    for k, v in self.consts.items()
                    if k not in ("dt", "seeds")}
+        self.route = ops.sweep_route(dev, self.use_kernels)
+        if self.route == "fused":
+            c = ops.campaign_sweep(
+                self.pack_args(uniforms), dt=float(self.consts["dt"]),
+                nat_any=self.nat_any, dp_active=self.dp_active,
+                dp_staging=self.dp_staging)
+        else:
+            c = self._tick_loop(uniforms)
+        if dev.type == "cuda" and self.route != "plain":
+            ops.SWEEP_ROUTES[f"campaign_sweep.{self.route}"] += 1
+
+        # settle the final interval: one more dt at last-segment rates
+        dt = float(self.consts["dt"])
+        live_final = c["idle"] + c["pdead"] + c["busy"].sum(2, dtype=I32)
+        amt = live_final.to(F32) * self._p["rate"][-1] * dt
+        c["spent"] = c["spent"] + amt.sum(1)
+        c["by_prov"] = c["by_prov"] + amt @ self._k["prov_onehot"]
+        c["live_g"] = live_final
+        self.out = {k: v.cpu().numpy() for k, v in c.items()}
+        return self
+
+    def _tick_loop(self, uniforms: Optional[UniformHook]) -> dict:
+        """The eager route: ``_tick`` once per tick from Python."""
+        dev = self.device
         hook = uniforms if uniforms is not None else self._own_uniforms()
         self._ops = self._tick_ops()
         B, G, W, L, P = self.B, self.G, self.consts["M_wl"].shape[1], \
@@ -539,22 +562,12 @@ class TorchSweepEngine:
              "misses": z_f(B), "stage_t": z_f(B), "egress_g": z_f(B, G)}
         self._thresholds = torch.tensor(LEDGER_THRESHOLDS, dtype=F32,
                                         device=dev)
-        oh = self._k["overhead"] * float(self.consts["dt"]) / 24.0
-        self._overhead_tick = torch.where(oh > 0, oh, 0.0)
+        self._overhead = self._overhead_tick(dev)
         for i in range(self.N):
             u = torch.as_tensor(hook(i), dtype=F32, device=dev)
             c = self._tick(c, i, int(self.seg_of_tick[i]),
                            bool(self.is_seg_start[i]), u)
-
-        # settle the final interval: one more dt at last-segment rates
-        dt = float(self.consts["dt"])
-        live_final = c["idle"] + c["pdead"] + c["busy"].sum(2, dtype=I32)
-        amt = live_final.to(F32) * self._p["rate"][-1] * dt
-        c["spent"] = c["spent"] + amt.sum(1)
-        c["by_prov"] = c["by_prov"] + amt @ self._k["prov_onehot"]
-        c["live_g"] = live_final
-        self.out = {k: v.cpu().numpy() for k, v in c.items()}
-        return self
+        return c
 
     def _requeue_levels(self, kb: torch.Tensor) -> torch.Tensor:
         # busy cells [B,G,W] -> checkpoint-level counts [B,L]
@@ -737,8 +750,8 @@ class TorchSweepEngine:
         by_prov = c["by_prov"] + prov_d
 
         # 10. flat infra overhead
-        spent = spent + self._overhead_tick
-        infra = c["infra"] + self._overhead_tick
+        spent = spent + self._overhead
+        infra = c["infra"] + self._overhead
 
         # 11. ledger alert thresholds -> budget-floor tripwire (the cap
         # itself applies at the next tick's event phase)
@@ -867,24 +880,45 @@ class TorchSweepEngine:
 def run_torch_detailed(
         lane_specs: Sequence[Tuple[CampaignSpec, int]], device=None,
         uniforms: Optional[Callable[[TorchSweepEngine], UniformHook]] = None,
-        use_kernels: bool = True) -> List[Tuple[dict, List[dict]]]:
+        use_kernels: bool = True,
+        timings: Optional[Dict[str, float]] = None
+        ) -> List[Tuple[dict, List[dict]]]:
     """Run every (spec, seed) lane, batching by the structural key;
     returns per-lane ``(results, events_fired)`` in input order.
     ``uniforms``, if given, maps each engine batch to its draw hook
     (see :meth:`TorchSweepEngine.run`); ``use_kernels=False`` runs the
-    plain versions of the tick ops on the same device."""
+    plain versions of the tick ops on the same device.  ``timings``, if
+    given, gains the host seconds of each stage: "prepare" (validating
+    and batching the lanes), "planner" (the engines' constructors),
+    "run" (the ticks, through the copy of the final state to the host,
+    which waits for the card) and "results" (each lane's results and
+    events)."""
+    clock = time.perf_counter
+    split = {"prepare": 0.0, "planner": 0.0, "run": 0.0, "results": 0.0}
+    t0 = clock()
     dev = resolve_device(device)
     prepared = [_prepare(sc, seed) for sc, seed in lane_specs]
     batches: Dict[tuple, List[int]] = {}
     for i, (key, _lane) in enumerate(prepared):
         batches.setdefault(key, []).append(i)
     out: List[Optional[tuple]] = [None] * len(prepared)
+    split["prepare"] += clock() - t0
     for idxs in batches.values():
+        t0 = clock()
         eng = TorchSweepEngine([prepared[i][1] for i in idxs], device=dev,
                                use_kernels=use_kernels)
+        t1 = clock()
         eng.run(uniforms(eng) if uniforms is not None else None)
+        t2 = clock()
         for j, i in enumerate(idxs):
             out[i] = (eng.lane_results(j), eng.lane_events(j))
+        t3 = clock()
+        split["planner"] += t1 - t0
+        split["run"] += t2 - t1
+        split["results"] += t3 - t2
+    if timings is not None:
+        for key, secs in split.items():
+            timings[key] = timings.get(key, 0.0) + secs
     return out
 
 

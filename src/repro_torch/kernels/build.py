@@ -31,12 +31,15 @@ __all__ = ["SOURCES", "HEADERS", "NVCC_FLAGS", "build_dir", "library",
            "last_build_seconds"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (_CSRC / "campaign_sweep.cu", _CSRC / "flash_attention.cu",
+SOURCES = (_CSRC / "campaign_sweep.cu", _CSRC / "campaign_sweep_fused.cu",
+           _CSRC / "flash_attention.cu",
            _CSRC / "moe_gmm.cu", _CSRC / "mamba_scan.cu",
            _CSRC / "mlstm_chunk.cu", _CSRC / "mlstm_chunk_wgmma.cu")
-# hopper.cuh: included by every source but campaign_sweep.cu;
-# mlstm_gates.cuh (the mLSTM's gate pass): by both mLSTM sources
-HEADERS = (_CSRC / "hopper.cuh", _CSRC / "mlstm_gates.cuh")
+# hopper.cuh: included by every source but the two campaign ones;
+# mlstm_gates.cuh (the mLSTM's gate pass): by both mLSTM sources;
+# campaign_ops.cuh (the tick's row bodies): by both campaign sources
+HEADERS = (_CSRC / "hopper.cuh", _CSRC / "mlstm_gates.cuh",
+           _CSRC / "campaign_ops.cuh")
 # IEEE division and square root, no fast math: the allocator's floors
 # depend on every f32 operation rounding on its own
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -112,6 +115,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.campaign_alloc.argtypes = [p, p, p, i, i, p]
     lib.campaign_advance.argtypes = [p, p, p, p, i, i, p]
     lib.campaign_bill.argtypes = [p, p, p, p, p, i, i, i, p]
+    # pointers (ops.SWEEP_INPUTS, ops.SWEEP_STATE, the cells scratch),
+    # their count, dims, their count, dt, flags, stream
+    lib.campaign_sweep_fused.argtypes = [p, i, p, i, ctypes.c_float, i, p]
     # q, k, v, o, strides, bf16, B, H, Hkv, Sq, Skv, D, causal, kv_len,
     # q_offset, scale, stream
     lib.flash_attention.argtypes = [p, p, p, p, p, *[i] * 10,
@@ -134,9 +140,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.argtypes = [i] * 6
         fn.restype = ctypes.c_longlong
     for fn in (lib.campaign_alloc, lib.campaign_advance, lib.campaign_bill,
-               lib.flash_attention, lib.flash_attention_wgmma, lib.moe_gmm,
-               lib.moe_gmm_wgmma, lib.mamba_scan, lib.mlstm_chunk,
-               lib.mlstm_chunk_wgmma):
+               lib.campaign_sweep_fused, lib.flash_attention,
+               lib.flash_attention_wgmma, lib.moe_gmm, lib.moe_gmm_wgmma,
+               lib.mamba_scan, lib.mlstm_chunk, lib.mlstm_chunk_wgmma):
         fn.restype = ctypes.c_int
     return lib
 

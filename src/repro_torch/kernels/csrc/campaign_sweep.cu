@@ -3,19 +3,20 @@
 // The sweep engine (repro_torch/core/sweep_torch.py) keeps B campaigns
 // as count planes: how many instances sit in each (lane, group,
 // progress-step) cell.  Its hot per-tick phases are the three kernels
-// below.  Each is bound through a plain C entry point that launches on
-// the caller's stream, allocates nothing, and returns
-// cudaGetLastError() so the Python wrapper can raise on a refused
+// below, the "ops" route of the engine (the persistent
+// campaign_sweep_fused.cu runs all of a sweep's ticks in one launch and
+// is the route on the card).  Each is bound through a plain C entry
+// point that launches on the caller's stream, allocates nothing, and
+// returns cudaGetLastError() so the Python wrapper can raise on a refused
 // launch.
 //
-// Rounding: the allocator is exact only if `inc*s + 1e-3` is rounded as
-// two IEEE operations, as the JAX reference computes it.  nvcc would
-// contract the pair into one FMA, so every float operation here is an
-// explicit round-to-nearest intrinsic (__fmul_rn, __fadd_rn, __fsub_rn,
-// __fdiv_rn), which nvcc never contracts.  Never build with
-// --use_fast_math.
+// The row bodies live in campaign_ops.cuh, shared with the persistent
+// kernel, so both routes round the same way (every float operation an
+// explicit round-to-nearest intrinsic; never build with --use_fast_math).
 
 #include <cuda_runtime.h>
+
+#include "campaign_ops.cuh"
 
 namespace {
 
@@ -48,22 +49,9 @@ __global__ void campaign_alloc_kernel(const int* __restrict__ counts,
                                       int* __restrict__ out, int R, int C) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= R) return;
-  const int* row = counts + static_cast<long long>(r) * C;
   int* orow = out + static_cast<long long>(r) * C;
-  int tot = 0;
-  for (int c = 0; c < C; ++c) tot += row[c];
-  const int kk = min(k[r], tot);
-  const float s = __fdiv_rn(__int2float_rn(kk), __int2float_rn(max(tot, 1)));
-  int run = 0;
-  for (int c = 0; c < C; ++c) {
-    const int x = row[c];
-    run += x;
-    const float inc = __int2float_rn(run);
-    const float exc = __fsub_rn(inc, __int2float_rn(x));
-    const float hi = floorf(__fadd_rn(__fmul_rn(inc, s), 1e-3f));
-    const float lo = floorf(__fadd_rn(__fmul_rn(exc, s), 1e-3f));
-    orow[c] = static_cast<int>(__fsub_rn(hi, lo));
-  }
+  campaign::alloc_row(counts + static_cast<long long>(r) * C, k[r], C,
+                      [&](int c, int take) { orow[c] = take; });
 }
 
 // ---------------------------------------------------------------------------
@@ -89,16 +77,8 @@ __global__ void campaign_advance_kernel(const int* __restrict__ busy,
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= R) return;
   const long long base = static_cast<long long>(r) * W;
-  int done = 0;
-  int carry = 0;  // survivors of step w-1, moving into step w
-  for (int w = 0; w < W; ++w) {
-    const int b = busy[base + w];
-    const int f = b * fin_mask[base + w];
-    done += f;
-    advanced[base + w] = carry;
-    carry = b - f;
-  }
-  finished[r] = done;
+  finished[r] = campaign::advance_row(busy + base, fin_mask + base,
+                                      advanced + base, W);
 }
 
 // ---------------------------------------------------------------------------
@@ -126,20 +106,8 @@ __global__ void campaign_bill_kernel(const int* __restrict__ live,
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const long long base = static_cast<long long>(b) * G;
-  float total = 0.0f;
-  for (int g = 0; g < G; ++g)
-    total = __fadd_rn(total, __fmul_rn(__int2float_rn(live[base + g]),
-                                       rate[base + g]));
-  spent[b] = total;
-  for (int p = 0; p < P; ++p) {
-    float acc = 0.0f;
-    for (int g = 0; g < G; ++g) {
-      const float amt = __fmul_rn(__int2float_rn(live[base + g]),
-                                  rate[base + g]);
-      acc = __fadd_rn(acc, __fmul_rn(amt, onehot[g * P + p]));
-    }
-    by_prov[static_cast<long long>(b) * P + p] = acc;
-  }
+  campaign::bill_lane(live + base, rate + base, onehot, G, P, spent + b,
+                      by_prov + static_cast<long long>(b) * P);
 }
 
 }  // namespace

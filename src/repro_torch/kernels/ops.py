@@ -15,16 +15,22 @@ through TMA and wgmma) and the CUDA-core one (``simt``: everything
 else).  A stated rule picks the route (``flash_route``, ``gmm_route``,
 ``mlstm_route``); ``ROUTES`` (flash attention and moe_gmm) and
 ``MLSTM_ROUTES`` (mlstm_chunk) count the launches of each route beside
-``LAUNCHES``.  ``_force_route`` pins one for the harness and the tests,
-which time and check both routes on the same inputs (forcing the wgmma
-route on an input its rule refuses raises); nothing in the models or the
-launch path calls it.
+``LAUNCHES``.  The campaign sweep engine has routes of its own, picked
+by ``sweep_route``: "fused" (one ``campaign_sweep`` launch runs a whole
+engine batch), "ops" (the eager tick loop through the four per-tick
+wrappers) and "plain"; ``SWEEP_ROUTES`` counts the engine batches run
+on the card by each kernel route.  ``_force_route`` pins a route for the
+harness and the tests, which time and check the routes on the same
+inputs (forcing the wgmma route on an input its rule refuses raises);
+nothing in the models or the launch path calls it.
 
   wrapper             kernel            replaces (JAX package)
   campaign_preempt    campaign_alloc    kernels/campaign_sweep.py:69
   campaign_match      campaign_alloc    kernels/campaign_sweep.py:76
   campaign_advance    campaign_advance  kernels/campaign_sweep.py:93
   campaign_bill       campaign_bill     kernels/campaign_sweep.py:117
+  campaign_sweep      campaign_sweep_kernel  core/sweep_jax.py:236 (the
+                      scan whose step calls the four above)
   flash_attention     flash_attention   kernels/flash_attention.py:79
                       (flash_attention_wgmma on the tensor-core route)
   (and flash_attention_kernel, its kernel-level entry point)
@@ -48,16 +54,18 @@ import torch
 
 from repro_torch.kernels import ref
 
-__all__ = ["LAUNCHES", "ROUTES", "MLSTM_ROUTES", "reset_launches",
-           "flash_route", "gmm_route", "gmm_row_tile", "mlstm_route",
-           "scan_segment_len",
-           "campaign_preempt",
+__all__ = ["LAUNCHES", "ROUTES", "MLSTM_ROUTES", "SWEEP_ROUTES",
+           "reset_launches", "flash_route", "gmm_route", "gmm_row_tile",
+           "mlstm_route", "scan_segment_len", "sweep_route",
+           "SWEEP_INPUTS", "SWEEP_STATE", "campaign_preempt",
            "campaign_match", "campaign_advance", "campaign_bill",
+           "campaign_sweep",
            "flash_attention", "flash_attention_kernel", "moe_gmm",
            "mamba_scan", "mlstm_chunk", "mlstm_chunk_model"]
 
 LAUNCHES: Dict[str, int] = {"campaign_preempt": 0, "campaign_match": 0,
                             "campaign_advance": 0, "campaign_bill": 0,
+                            "campaign_sweep": 0,
                             "flash_attention": 0, "moe_gmm": 0,
                             "mamba_scan": 0, "mlstm_chunk": 0}
 # launches of each route of the two-route kernels ("op.route")
@@ -67,12 +75,18 @@ ROUTES: Dict[str, int] = {"flash_attention.wgmma": 0,
 # the same for the mLSTM kernel's two routes
 MLSTM_ROUTES: Dict[str, int] = {"mlstm_chunk.wgmma": 0,
                                 "mlstm_chunk.simt": 0}
-_FORCED: Dict[str, Optional[str]] = {"flash_attention": None,
-                                     "moe_gmm": None, "mlstm_chunk": None}
+# campaign sweep engine batches run on the card, by kernel route
+SWEEP_ROUTES: Dict[str, int] = {"campaign_sweep.fused": 0,
+                                "campaign_sweep.ops": 0}
+# the routes each op can be pinned to
+_ROUTE_NAMES: Dict[str, Tuple[str, ...]] = {
+    "flash_attention": ("wgmma", "simt"), "moe_gmm": ("wgmma", "simt"),
+    "mlstm_chunk": ("wgmma", "simt"), "campaign_sweep": ("fused", "ops")}
+_FORCED: Dict[str, Optional[str]] = {op: None for op in _ROUTE_NAMES}
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, ROUTES, MLSTM_ROUTES):
+    for counts in (LAUNCHES, ROUTES, MLSTM_ROUTES, SWEEP_ROUTES):
         for name in counts:
             counts[name] = 0
 
@@ -80,10 +94,12 @@ def reset_launches() -> None:
 @contextlib.contextmanager
 def _force_route(op: str, route: Optional[str]) -> Iterator[None]:
     """Pin ``op`` ("flash_attention", "moe_gmm" or "mlstm_chunk") to
-    ``route`` ("wgmma" or "simt"; None: the rule) inside the block.  A
-    forced wgmma route on an input the rule would not send there
-    raises."""
-    if op not in _FORCED or route not in (None, "wgmma", "simt"):
+    ``route`` ("wgmma" or "simt"), or the campaign sweep engine
+    ("campaign_sweep") to "fused" or "ops", inside the block (None: the
+    rule).  A forced wgmma route on an input the rule would not send
+    there raises."""
+    if op not in _FORCED or (route is not None
+                             and route not in _ROUTE_NAMES[op]):
         raise ValueError(f"_force_route: no route {route!r} for {op!r}")
     before = _FORCED[op]
     _FORCED[op] = route
@@ -202,6 +218,132 @@ def campaign_bill(live: torch.Tensor, rate: torch.Tensor,
         spent.data_ptr(), by_prov.data_ptr(), B, G, P, _stream(live)), op)
     LAUNCHES[op] += 1
     return spent, by_prov
+
+
+# -- the whole campaign sweep -------------------------------------------------
+
+_I32, _F32, _BOOL, _I64 = torch.int32, torch.float32, torch.bool, torch.int64
+# The persistent sweep kernel's arguments in its C entry's order (the Arg
+# enum of csrc/campaign_sweep_fused.cu): name, dtype and shape in the
+# dims N (ticks), S (segments), B (lanes), G (groups), X (progress steps,
+# stage-in included), J (queue slices, L + 1), L (checkpoint levels), P
+# (providers), T (ledger thresholds).
+SWEEP_INPUTS: Tuple[Tuple[str, torch.dtype, str], ...] = (
+    ("seg_of_tick", _I32, "N"), ("is_seg_start", _BOOL, "N"),
+    ("cap", _I32, "SBG"), ("rate", _F32, "SBG"), ("outage", _BOOL, "SB"),
+    ("floor", _F32, "SB"), ("downscale", _I32, "SB"), ("minq", _I32, "SB"),
+    ("n_unc", _I32, "SB"), ("n_cap", _I32, "SB"),
+    ("origin_up", _BOOL, "SBG"), ("dp_flush", _BOOL, "SBG"),
+    ("S_miss", _I32, "SBG"), ("pos_miss", _I32, "SBGJ"),
+    ("pre_rate_g", _F32, "G"), ("pre_scale_g", _F32, "G"),
+    ("nat_g", _I32, "BG"), ("finmask", _I32, "BX"), ("lvl_of_w", _I32, "BX"),
+    ("w0_of_j", _I32, "BJ"), ("pos_hit", _I32, "BGJ"),
+    ("prov_onehot", _F32, "GP"), ("overhead_tick", _F32, "B"),
+    ("budget", _F32, "B"), ("thresholds", _F32, "T"),
+    ("dp_r_g", _F32, "G"), ("dp_loss_g", _F32, "G"), ("dp_has_g", _F32, "G"),
+    ("dp_usd_miss_g", _F32, "G"), ("S_hit_g", _F32, "G"),
+    ("seeds", _I64, "B"), ("uniforms", _F32, "NBG"))
+# the final state it returns (the eager tick loop's state keys), in order
+SWEEP_STATE: Tuple[Tuple[str, torch.dtype, str], ...] = (
+    ("idle", _I32, "BG"), ("pdead", _I32, "BG"), ("target_g", _I32, "BG"),
+    ("busy", _I32, "BGX"), ("lv", _I32, "BL"), ("fresh_q", _I32, "B"),
+    ("spent", _F32, "B"), ("by_prov", _F32, "BP"), ("infra", _F32, "B"),
+    ("fired", _BOOL, "BT"), ("capped", _BOOL, "B"),
+    ("cap_pending", _BOOL, "B"), ("cap_tick", _I32, "B"),
+    ("pre_ct", _I32, "B"), ("nat_ct", _I32, "B"), ("fin_ct", _I32, "B"),
+    ("accel", _F32, "B"), ("busy_h", _F32, "B"), ("busy_prov", _F32, "BP"),
+    ("hit_acc", _F32, "BG"), ("virgin", _F32, "BG"), ("hits", _F32, "B"),
+    ("misses", _F32, "B"), ("stage_t", _F32, "B"), ("egress_g", _F32, "BG"))
+# inputs only a data plane needs: origin gating, then stage-in
+_SWEEP_GATING = ("origin_up",)
+_SWEEP_STAGING = ("dp_flush", "S_miss", "pos_miss", "pos_hit", "dp_r_g",
+                  "dp_loss_g", "dp_has_g", "dp_usd_miss_g", "S_hit_g")
+
+
+def sweep_route(device, use_kernels: bool = True) -> str:
+    """The campaign sweep engine's route: "plain" (the eager tick loop
+    on the plain tick ops) when ``use_kernels`` is False; with kernels
+    on, "fused" (one ``campaign_sweep`` launch runs the engine batch) on
+    a CUDA device and "ops" (the eager tick loop through the four
+    per-tick wrappers, which run their plain versions on CPU tensors)
+    elsewhere.  ``_force_route("campaign_sweep", "ops" | "fused")`` pins
+    a kernel route; a forced "fused" on the CPU runs
+    ``ref.campaign_sweep_ref``."""
+    if not use_kernels:
+        return "plain"
+    rule = "fused" if torch.device(device).type == "cuda" else "ops"
+    return _pick("campaign_sweep", rule)
+
+
+def _sweep_dims(args: Dict[str, Optional[torch.Tensor]]) -> Dict[str, int]:
+    for name, rank in (("seg_of_tick", 1), ("cap", 3), ("lvl_of_w", 2),
+                       ("w0_of_j", 2), ("prov_onehot", 2),
+                       ("thresholds", 1)):
+        t = args.get(name)
+        if t is None or t.dim() != rank:
+            raise ValueError(f"campaign_sweep: {name} must be a rank-{rank} "
+                             "tensor")
+    S, B, G = args["cap"].shape
+    J = args["w0_of_j"].shape[1]
+    return {"N": args["seg_of_tick"].shape[0], "S": S, "B": B, "G": G,
+            "X": args["lvl_of_w"].shape[1], "J": J, "L": J - 1,
+            "P": args["prov_onehot"].shape[1],
+            "T": args["thresholds"].shape[0]}
+
+
+def campaign_sweep(args: Dict[str, Optional[torch.Tensor]], *, dt: float,
+                   nat_any: bool, dp_active: bool, dp_staging: bool
+                   ) -> Dict[str, torch.Tensor]:
+    """Every tick of one engine batch in one launch: ``args`` maps the
+    names of ``SWEEP_INPUTS`` to contiguous tensors on one device (the
+    data plane's only where ``dp_active`` / ``dp_staging`` ask for them,
+    and exactly one of ``seeds``, for the kernel's own Philox draws, and
+    ``uniforms``, a [N, B, G] buffer of draws) -> the final state, keyed
+    as ``SWEEP_STATE``, before the final settle.  The index planes are
+    the planner's: nothing checks that they stay inside their axes."""
+    op = "campaign_sweep"
+    dims = _sweep_dims(args)
+    dev = args["cap"].device
+    needed = {name for name, _, _ in SWEEP_INPUTS} - {"seeds", "uniforms"}
+    if not dp_active:
+        needed -= set(_SWEEP_GATING)
+    if not dp_staging:
+        needed -= set(_SWEEP_STAGING)
+    own_draws = args.get("uniforms") is None
+    if own_draws == (args.get("seeds") is None):
+        raise ValueError(f"{op}: give exactly one of seeds and uniforms")
+    for name, dtype, shape in SWEEP_INPUTS:
+        t = args.get(name)
+        if t is None:
+            if name in needed:
+                raise ValueError(f"{op}: {name} is missing")
+            continue
+        _check(f"{op} {name}", t, dtype, tuple(dims[d] for d in shape), dev)
+    flags = dict(nat_any=nat_any, dp_active=dp_active, dp_staging=dp_staging)
+    if not _on_card(args["cap"], op):
+        return ref.campaign_sweep_ref(args, dt=dt, **flags)
+    from repro_torch.kernels.build import library
+    lib = library()
+    state = {name: torch.empty(tuple(dims[d] for d in shape), dtype=dtype,
+                               device=dev)
+             for name, dtype, shape in SWEEP_STATE}
+    # where four lanes' cells would not fit in a block's shared memory the
+    # kernel keeps them here
+    cells = torch.empty((dims["B"], dims["G"], dims["X"] + 2), dtype=_I32,
+                        device=dev)
+    tensors = [args.get(name) for name, _, _ in SWEEP_INPUTS] + \
+        [state[name] for name, _, _ in SWEEP_STATE] + [cells]
+    ptrs = (ctypes.c_void_p * len(tensors))(
+        *[0 if t is None else t.data_ptr() for t in tensors])
+    dim_vals = (ctypes.c_int * 8)(*[dims[d] for d in "BGXLPTSN"])
+    # the kernel's flag bits: kNatAny, kDpActive, kDpStaging, kOwnDraws
+    bits = (nat_any * 1) | (dp_active * 2) | (dp_staging * 4) | \
+        (own_draws * 8)
+    _raise_on(lib.campaign_sweep_fused(ptrs, len(tensors), dim_vals, 8,
+                                       float(dt), bits, _stream(args["cap"])),
+              op)
+    LAUNCHES[op] += 1
+    return state
 
 
 # -- flash attention ---------------------------------------------------------

@@ -18,6 +18,10 @@ integer allocations and reductions over those planes.  These are the
 plain versions of the CUDA kernels in csrc/campaign_sweep.cu: the
 wrappers in ops.py run them for CPU tensors, and the CPU tests hold them
 to the JAX package's ``kernels/ref.py`` on the same numpy inputs.
+``campaign_sweep_ref`` is the plain version of the persistent sweep
+kernel (csrc/campaign_sweep_fused.cu): all N ticks of a batch, built
+from those ops, with the engine's draws (``philox_uniforms``,
+``poisson``), which live here so that the engine and it share them.
 
 Every op keeps int32 counts and f32 arithmetic in the JAX order:
 
@@ -29,7 +33,7 @@ Every op keeps int32 counts and f32 arithmetic in the JAX order:
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,7 +43,8 @@ __all__ = ["flash_attention_ref", "flash_attention_model_ref",
            "mlstm_model_ref", "mlstm_chunkwise_ref",
            "campaign_alloc_ref", "campaign_preempt_ref",
            "campaign_match_ref", "campaign_advance_ref",
-           "campaign_bill_ref"]
+           "campaign_bill_ref", "philox4x32", "philox_uniforms", "poisson",
+           "campaign_sweep_ref"]
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool, kv_len=None, scale=None,
@@ -303,3 +308,324 @@ def campaign_bill_ref(live: torch.Tensor, rate: torch.Tensor,
         spent = spent + amt[:, g]
         by_prov = by_prov + amt[:, g:g + 1] * prov_onehot[g]
     return spent, by_prov
+
+
+# -- the sweep's draws -----------------------------------------------------
+
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_U32 = 0xFFFFFFFF
+
+
+def _mulhilo(a: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) 32-bit halves of ``a * m`` for int64 ``a`` in
+    [0, 2**32): the product is split at 16 bits of ``a`` so no
+    intermediate leaves int64."""
+    p_lo = (a & 0xFFFF) * m                # < 2**48
+    p_hi = (a >> 16) * m                   # < 2**48
+    s = (p_lo >> 16) + p_hi                # product == s * 2**16 + low16
+    return s >> 16, ((s & 0xFFFF) << 16) | (p_lo & 0xFFFF)
+
+
+def philox4x32(ctr, key, rounds: int = 10):
+    """Philox-4x32 (Salmon et al., SC'11) on int64 tensors holding
+    uint32 values: ``ctr`` four words, ``key`` two; returns four words."""
+    c0, c1, c2, c3 = ctr
+    k0, k1 = key
+    for _ in range(rounds):
+        hi0, lo0 = _mulhilo(c0, _PHILOX_M[0])
+        hi1, lo1 = _mulhilo(c2, _PHILOX_M[1])
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + _PHILOX_W[0]) & _U32
+        k1 = (k1 + _PHILOX_W[1]) & _U32
+    return c0, c1, c2, c3
+
+
+def philox_uniforms(seeds: torch.Tensor, ticks: torch.Tensor, G: int
+                    ) -> torch.Tensor:
+    """[T, B, G] float32 uniforms in [0, 1) for lane seeds ``seeds``
+    (B,) int64 at tick indices ``ticks`` (T,) int64: word 0 of
+    Philox-4x32-10 at key (seed low, seed high), counter
+    (tick, group, 0, 0), top 24 bits."""
+    dev = seeds.device
+    T, B = ticks.shape[0], seeds.shape[0]
+    shape = (T, B, G)
+    c0 = ticks.view(T, 1, 1).expand(shape)
+    c1 = torch.arange(G, dtype=torch.int64, device=dev).view(1, 1, G) \
+        .expand(shape)
+    zero = torch.zeros(shape, dtype=torch.int64, device=dev)
+    k0 = (seeds & _U32).view(1, B, 1).expand(shape)
+    k1 = ((seeds >> 32) & _U32).view(1, B, 1).expand(shape)
+    x0, _x1, _x2, _x3 = philox4x32((c0, c1, zero, zero), (k0, k1))
+    return (x0 >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+# f32-representable clip bounds (the values JAX's weak-typed
+# ``clip(u, 1e-7, 1 - 1e-7)`` rounds to)
+_U_LO = float(np.float32(1e-7))
+_U_HI = float(np.float32(1.0 - 1e-7))
+
+
+def poisson(u: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
+    """Poisson(lam) quantile of the uniform draw ``u``: truncated
+    inverse CDF for small lam, a rounded normal approximation above 8
+    (the JAX engine's ``_poisson``, op for op)."""
+    K = 24
+    p = torch.exp(-torch.clamp(lam, max=30.0))
+    cdf = p
+    kk = (u > cdf).to(torch.int32)
+    for j in range(1, K):
+        p = p * lam / j
+        cdf = cdf + p
+        kk = kk + (u > cdf).to(torch.int32)
+    z = torch.special.ndtri(torch.clamp(u, _U_LO, _U_HI))
+    k_norm = torch.round(lam + torch.sqrt(torch.clamp(lam, min=0.0)) * z)
+    return torch.where(lam > 8.0, torch.clamp(k_norm, min=0.0)
+                       .to(torch.int32), kk)
+
+
+# -- the whole sweep ---------------------------------------------------------
+
+def campaign_sweep_ref(args: Dict[str, Optional[torch.Tensor]], *,
+                       dt: float, nat_any: bool, dp_active: bool,
+                       dp_staging: bool) -> Dict[str, torch.Tensor]:
+    """All N ticks of one engine batch from the packed arguments of
+    ``ops.campaign_sweep`` (names and shapes in ``ops.SWEEP_INPUTS``);
+    returns the final state (``ops.SWEEP_STATE``), before the settle.
+
+    Lane-vectorised and phase for phase the eager engine's ``_tick``
+    (core/sweep_torch.py) on the plain tick ops, with two differences
+    that change no integer: counts are scattered by the index planes
+    (``lvl_of_w``, ``w0_of_j``, ``pos_hit``, ``pos_miss``) instead of
+    multiplied by one-hot planes, and the data plane's egress is summed
+    over the groups left to right (the kernel's order) where the eager
+    engine calls ``torch.sum``."""
+    I32, F32 = torch.int32, torch.float32
+    a = args
+    seg_of_tick = a["seg_of_tick"].tolist()
+    is_start = a["is_seg_start"].tolist()
+    N = len(seg_of_tick)
+    _S, B, G = a["cap"].shape
+    X = a["lvl_of_w"].shape[1]
+    J = a["w0_of_j"].shape[1]
+    L = J - 1
+    P = a["prov_onehot"].shape[1]
+    dev = a["cap"].device
+    onehot = a["prov_onehot"]
+    lvl_of_w = a["lvl_of_w"].to(torch.int64)
+    w0_of_j = a["w0_of_j"].to(torch.int64)[:, None, :].expand(B, G, J)
+    finmask_rg = a["finmask"].repeat_interleave(G, dim=0)
+    thresholds = a["thresholds"]
+    budget = a["budget"]
+    oh = a["overhead_tick"]
+    if dp_staging:
+        pos_hit = a["pos_hit"].to(torch.int64)
+        pos_miss = a["pos_miss"].to(torch.int64)
+
+    def z_i(*s):
+        return torch.zeros(s, dtype=I32, device=dev)
+
+    def z_f(*s):
+        return torch.zeros(s, dtype=F32, device=dev)
+    idle, pdead, busy, target_g = z_i(B, G), z_i(B, G), z_i(B, G, X), \
+        z_i(B, G)
+    lv, fresh_q = z_i(B, L), z_i(B)
+    spent, by_prov, infra = z_f(B), z_f(B, P), z_f(B)
+    fired = torch.zeros((B, thresholds.shape[0]), dtype=torch.bool,
+                        device=dev)
+    capped = torch.zeros(B, dtype=torch.bool, device=dev)
+    cap_pending = torch.zeros(B, dtype=torch.bool, device=dev)
+    cap_tick = torch.full((B,), -1, dtype=I32, device=dev)
+    pre_ct, nat_ct, fin_ct = z_i(B), z_i(B), z_i(B)
+    accel, busy_h, busy_prov = z_f(B), z_f(B), z_f(B, P)
+    hit_acc, virgin, egress_g = z_f(B, G), z_f(B, G), z_f(B, G)
+    hits, misses, stage_t = z_f(B), z_f(B), z_f(B)
+
+    def requeue(lv, kb):                  # busy cells -> their levels
+        return lv.scatter_add(1, lvl_of_w, kb.sum(1, dtype=I32))
+
+    def split(idle, pdead, busy, k):      # the allocator over the cells
+        cells = torch.cat([idle[..., None], pdead[..., None], busy], dim=2)
+        killed = campaign_alloc_ref(cells.view(B * G, X + 2),
+                                    k.reshape(B * G)).view(B, G, X + 2)
+        return killed[..., 0], killed[..., 1], killed[..., 2:]
+
+    block = 64
+    draws = None
+    for i in range(N):
+        seg, start = seg_of_tick[i], bool(is_start[i])
+        if a["uniforms"] is not None:
+            u = a["uniforms"][i]
+        else:
+            if i % block == 0:
+                draws = philox_uniforms(
+                    a["seeds"], torch.arange(i, min(i + block, N),
+                                             dtype=torch.int64, device=dev),
+                    G)
+            u = draws[i % block]
+        cap_g, rate_g = a["cap"][seg], a["rate"][seg]
+        live0 = idle + pdead + busy.sum(2, dtype=I32)
+        live_g = live0
+        if dp_staging and start:
+            virgin = torch.where(a["dp_flush"][seg], live0.to(F32), virgin)
+
+        # 1. events
+        cume = cap_g.cumsum(1, dtype=I32) - cap_g
+
+        def greedy(n):
+            return torch.minimum(torch.clamp(n[:, None] - cume, min=0),
+                                 cap_g)
+        apply_cap = cap_pending
+        target_g = torch.where(apply_cap[:, None],
+                               greedy(a["downscale"][seg]), target_g)
+        cap_tick = torch.where(apply_cap, i, cap_tick)
+        if start:
+            n_eff = torch.where(capped, a["n_cap"][seg], a["n_unc"][seg])
+            target_g = torch.where((n_eff >= 0)[:, None],
+                                   greedy(torch.clamp(n_eff, min=0)),
+                                   target_g)
+
+        # 2. kill down to target
+        excess = torch.clamp(live_g - target_g, min=0)
+        ki, kp, kb = split(idle, pdead, busy, excess)
+        idle, pdead, busy = idle - ki, pdead - kp, busy - kb
+        pre_ct = pre_ct + kb.sum((1, 2), dtype=I32)
+        lv = requeue(lv, kb)
+        live_g = live_g - ki - kp - kb.sum(2, dtype=I32)
+        if dp_staging:
+            virgin = virgin * live_g.to(F32) \
+                / torch.clamp(live0.to(F32), min=1.0)
+
+        # 3. spawn
+        deficit = torch.clamp(torch.minimum(target_g, cap_g) - live_g,
+                              min=0)
+        idle = idle + deficit
+        live_g = live_g + deficit
+        if dp_staging:
+            virgin = virgin + deficit.to(F32)
+            live_sp = live_g
+
+        # 4. preemption
+        util = live_g.to(F32) / torch.clamp(cap_g, min=1).to(F32)
+        hazard = a["pre_rate_g"][None, :] \
+            * (1.0 + (a["pre_scale_g"][None, :] - 1.0) * util) * dt
+        k_pre = poisson(u, live_g.to(F32) * hazard)
+        ki, kp, kb = split(idle, pdead, busy, k_pre)
+        idle, pdead, busy = idle - ki, pdead - kp, busy - kb
+        pre_ct = pre_ct + kb.sum((1, 2), dtype=I32)
+        lv = requeue(lv, kb)
+        live_g = live_g - ki - kp - kb.sum(2, dtype=I32)
+        if dp_staging:
+            virgin = virgin * live_g.to(F32) \
+                / torch.clamp(live_sp.to(F32), min=1.0)
+
+        # 5/6. queue top-up
+        ring_tot = lv.sum(1, dtype=I32)
+        fresh_q = fresh_q + torch.clamp(
+            a["minq"][seg] - (ring_tot + fresh_q), min=0)
+
+        # 7. match
+        idle_m = idle * a["origin_up"][seg] if dp_active else idle
+        idle_tot = idle_m.sum(1, dtype=I32)
+        k = torch.minimum(idle_tot, ring_tot + fresh_q)
+        k = torch.where(a["outage"][seg], 0, k)
+        take_g = campaign_match_ref(idle_m, k)
+        avail = torch.cat([lv.flip(1), fresh_q[:, None]], dim=1)
+        cumq = avail.cumsum(1, dtype=I32)
+        take_j = torch.minimum(torch.clamp(k[:, None] - (cumq - avail),
+                                           min=0), avail)
+        cA = take_g.cumsum(1, dtype=I32)
+        cB = take_j.cumsum(1, dtype=I32)
+        lo = torch.maximum((cA - take_g)[:, :, None],
+                           (cB - take_j)[:, None, :])
+        hi = torch.minimum(cA[:, :, None], cB[:, None, :])
+        joint = torch.clamp(hi - lo, min=0)                  # [B,G,J]
+        if dp_staging:
+            joint = joint.to(F32)
+            take_f = take_g.to(F32)
+            first_f = torch.minimum(take_f, virgin)
+            virgin = virgin - first_f
+            acc = hit_acc + take_f * a["dp_r_g"][None, :] \
+                - first_f * a["dp_loss_g"][None, :]
+            th_f = torch.minimum(torch.clamp(torch.floor(acc), min=0.0),
+                                 take_f)
+            hit_acc = acc - th_f
+            cumj = joint.cumsum(2)
+            hit_j = torch.minimum(
+                torch.clamp(th_f[:, :, None] - (cumj - joint), min=0.0),
+                joint)
+            miss_j = joint - hit_j
+            busy = busy.scatter_add(2, pos_hit, hit_j.to(I32)) \
+                .scatter_add(2, pos_miss[seg], miss_j.to(I32))
+            has = a["dp_has_g"][None, :]
+            miss_f = (take_f - th_f) * has
+            hits = hits + (th_f * has).sum(1)
+            misses = misses + miss_f.sum(1)
+            stage_t = stage_t \
+                + (th_f * a["S_hit_g"][None, :]
+                   + (take_f - th_f) * a["S_miss"][seg].to(F32)).sum(1)
+            eg_g = (take_f - th_f) * a["dp_usd_miss_g"][None, :]
+            egress_g = egress_g + eg_g
+        else:
+            busy = busy.scatter_add(2, w0_of_j, joint)
+        idle = idle - take_g
+        lv = lv - take_j[:, :L].flip(1)
+        fresh_q = fresh_q - take_j[:, L]
+
+        # 7.5 NAT drops
+        if nat_any:
+            drop = busy * a["nat_g"][:, :, None]
+            cnt = drop.sum((1, 2), dtype=I32)
+            lv = requeue(lv, drop)
+            nat_ct = nat_ct + cnt
+            pre_ct = pre_ct + cnt
+            busy = busy - drop
+            pdead = pdead + drop.sum(2, dtype=I32)
+
+        # 8. advance
+        adv, fin = campaign_advance_ref(busy.reshape(B * G, X), finmask_rg)
+        busy = adv.view(B, G, X)
+        fin_g = fin.view(B, G)
+        fin_ct = fin_ct + fin_g.sum(1, dtype=I32)
+        idle = idle + fin_g
+
+        # 9. billing
+        spent_d, prov_d = campaign_bill_ref(
+            live0, rate_g * (dt if i > 0 else 0.0), onehot)
+        spent = spent + spent_d
+        if dp_staging:
+            eg_sum = eg_g[:, 0]
+            for g in range(1, G):
+                eg_sum = eg_sum + eg_g[:, g]
+            spent = spent + eg_sum
+        by_prov = by_prov + prov_d
+
+        # 10. overhead
+        spent = spent + oh
+        infra = infra + oh
+
+        # 11. ledger thresholds -> budget-floor tripwire
+        frac = torch.clamp(budget - spent, min=0.0) / budget
+        cross = (frac[:, None] <= thresholds[None, :]) & ~fired
+        newly = cross.any(1)
+        fired = fired | cross
+        trigger = newly & (frac <= a["floor"][seg]) & ~capped
+        capped = capped | trigger
+        cap_pending = trigger
+
+        # 12. GPU-time totals
+        busy_g = busy.sum(2, dtype=I32).to(F32)
+        live_end = (idle + pdead).to(F32) + busy_g
+        accel = accel + live_end.sum(1) * dt
+        busy_h = busy_h + busy_g.sum(1) * dt
+        busy_prov = busy_prov + (busy_g @ onehot) * dt
+
+    return {"idle": idle, "pdead": pdead, "target_g": target_g,
+            "busy": busy, "lv": lv, "fresh_q": fresh_q, "spent": spent,
+            "by_prov": by_prov, "infra": infra, "fired": fired,
+            "capped": capped, "cap_pending": cap_pending,
+            "cap_tick": cap_tick, "pre_ct": pre_ct, "nat_ct": nat_ct,
+            "fin_ct": fin_ct, "accel": accel, "busy_h": busy_h,
+            "busy_prov": busy_prov, "hit_acc": hit_acc, "virgin": virgin,
+            "hits": hits, "misses": misses, "stage_t": stage_t,
+            "egress_g": egress_g}

@@ -108,9 +108,11 @@ def test_sweep_through_kernels_equals_plain_path(cuda):
     from repro_torch.core.scenarios import planning_grid
     specs = [replace(s, duration_h=48.0) for s in planning_grid()[:4]]
     ops.reset_launches()
-    got = sweep(specs, [0, 1])
+    with ops._force_route("campaign_sweep", "ops"):
+        got = sweep(specs, [0, 1])
     assert ops.LAUNCHES == {"campaign_preempt": 384, "campaign_match": 192,
                             "campaign_advance": 192, "campaign_bill": 192,
+                            "campaign_sweep": 0,
                             "flash_attention": 0, "moe_gmm": 0,
                             "mamba_scan": 0, "mlstm_chunk": 0}
     want = sweep(specs, [0, 1], use_kernels=False)
