@@ -120,7 +120,29 @@ Phases (any failure raises and exits non-zero with no result line):
              device busy time and the 21 simt launches);
  15. xserved BatchServer(slots=4, max_len=128) on the xlstm weights, f32,
              8 requests as in 8, and the prefill-vs-decode check;
- 16. report  a ``{"kernels": [...]}`` line (each entry with its route,
+ 16. train   the xlstm weights freed, the training path (the reference
+             path under autograd: no kernel of the port has a backward):
+             a) reduced yi-9b, jamba-v0.1-52b and xlstm-350m, f32, 3
+             steps on the card and on the CPU from the same parameters
+             and batches: losses within 1e-5 relative, grad_norm within
+             1e-4, parameters within 2 x the summed learning rates;
+             b) yi-9b at full width, 4 of 48 layers (1.229 B f32
+             parameters: the whole depth's f32 train state would not fit
+             80 GB), the Trainer at B=2, S=4096, grad_accum 2, remat, 6
+             timed steps and one profiled: losses finite and within 2.0
+             of ln 64000, step 0's loss the mean of forward_loss on its
+             two microbatches within 1e-6 and of the flash kernel's
+             forward within 1e-4, grad_norm finite and > 0; step s,
+             train tokens/s, peak memory, the device's busy share;
+             c) the same in bf16 (bf16 parameters, the f32 master), B=4,
+             tolerances 1e-2; d) the preemption round trip on b)'s model
+             (save_blocking at step 2, save_async at step 4, a new
+             Trainer resumes at 4, restore 2 and rerun 3-4: parameters
+             within rtol = atol = 1e-6 of the uninterrupted run's, bitwise
+             equality reported), with the checkpoint's bytes, the save,
+             restore and async-blocking seconds; a ``[train] {...}`` line
+             gathers the numbers with the card's name and power limit;
+ 17. report  a ``{"kernels": [...]}`` line (each entry with its route,
              "cuda", and "cuda_route", the kernel's route on the main path:
              "wgmma" or "simt"; flash attention and moe_gmm have one entry
              per route, the simt one, "flash_attention.simt",
@@ -142,6 +164,7 @@ from __future__ import annotations
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -251,13 +274,18 @@ def time_ms(fn, iters: int = 200, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profiled(fn):
+def profiled(fn, cpu: bool = True):
     """Run ``fn`` under torch.profiler; returns its CUDA kernel
-    averages (empty where the profiler sees no device activity)."""
+    averages (empty where the profiler sees no device activity).
+    ``cpu=False`` traces the card's activity alone: summing a model
+    forward's ~220 k launches then takes a third of the time (38 against
+    106 s for the xlstm forward on an NVIDIA H100 80GB HBM3 at 700 W),
+    with the same device times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + \
+        ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
     return [e for e in prof.key_averages()
@@ -858,7 +886,7 @@ def profile_forward(fn, wall: float, tag: str = "forward",
     time of an unprofiled one; returns, for each name (matched inside the
     CUDA kernels' names), the device ms per wrapper call, all of a call's
     CUDA kernels together (None where the trace has none)."""
-    kern = profiled(fn)
+    kern = profiled(fn, cpu=False)
     if not kern:
         log(f"[{tag}] device time not measured: the profiler trace holds "
             "no CUDA kernels")
@@ -925,7 +953,7 @@ def serve_phase(params, cfg, dev, tag: str = "serve") -> None:
     t0 = time.perf_counter()
     steps8()
     step_ms = (time.perf_counter() - t0) / 8 * 1e3
-    kern = profiled(steps8)
+    kern = profiled(steps8, cpu=False)
     if kern:
         busy = sum(e.self_device_time_total for e in kern) / 8 / 1e3
         log(f"[{tag}] profile: a decode step takes {step_ms:.2f} ms wall, "
@@ -1481,6 +1509,251 @@ def xlstm_forward_phase(params, cfg, dev) -> dict:
     return out
 
 
+# -- phase 16: training -----------------------------------------------------
+
+TRAIN_ARCHS = ("yi-9b", "jamba-v0.1-52b", "xlstm-350m")
+# yi-9b at full width, 4 of its 48 layers: 48 layers' f32 train state
+# (params + grads + mu + nu, ~141 GB) would not fit the card's 80 GB
+TRAIN_LAYERS = 4
+TRAIN_STEPS = 6
+
+
+def train_vs_cpu(dev) -> None:
+    """a) the reduced models, f32, REDUCED_SHAPE: 3 train steps on the
+    card and on the CPU from the same parameters and batches; losses
+    within 1e-5 relative, grad_norm within 1e-4, every parameter within
+    2 x the summed learning rates (the bound of tests/test_torch_train.py:
+    an AdamW step moves an element by about lr whatever its gradient)."""
+    from repro_torch.configs import REDUCED_SHAPE, RunConfig, get_reduced
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import flatten, map_tree
+
+    for arch in TRAIN_ARCHS:
+        cfg = get_reduced(arch)
+        run = RunConfig(model=cfg, shape=REDUCED_SHAPE,
+                        compute_dtype="float32")
+        cpu_p = init_params(cfg, 2021, device="cpu")
+        out = {}
+        ops.reset_launches()
+        for where, p in (("cpu", cpu_p),
+                         ("card", map_tree(lambda x: x.to(dev, copy=True),
+                                           cpu_p))):
+            step, opt, ms = make_train_step(cfg, run), adamw_init(p), []
+            for s in range(3):
+                p, opt, m = step(p, opt, make_batch(
+                    cfg, REDUCED_SHAPE, s, seed=7,
+                    device="cpu" if where == "cpu" else dev))
+                ms.append({k: float(v) for k, v in m.items()})
+            out[where] = (ms, [x.detach().cpu() for _, x in flatten(p)])
+        if any(ops.LAUNCHES.values()):
+            fail(f"train {arch}: the train step launched {ops.LAUNCHES}")
+        bound = 2 * sum(m["lr"] for m in out["cpu"][0])
+        loss_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                       for a, b in zip(out["card"][0], out["cpu"][0]))
+        gn_rel = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                     for a, b in zip(out["card"][0], out["cpu"][0]))
+        p_err = max(float((a - b).abs().max())
+                    for a, b in zip(out["card"][1], out["cpu"][1]))
+        if not (loss_rel <= 1e-5 and gn_rel <= 1e-4 and p_err <= bound):
+            fail(f"train {arch}: card vs CPU loss {loss_rel:.3g} (tol "
+                 f"1e-5), grad_norm {gn_rel:.3g} (tol 1e-4), params "
+                 f"{p_err:.3g} (bound {bound:.3g})")
+        log(f"[train] {cfg.name} f32 3 steps, card vs CPU: loss "
+            f"{loss_rel:.3g} relative (tol 1e-5), grad_norm {gn_rel:.3g} "
+            f"(tol 1e-4), params max abs {p_err:.3g} (bound {bound:.3g}); "
+            f"losses {[round(m['loss'], 6) for m in out['card'][0]]}")
+
+
+def full_width_train(dev, dtype: str, batch: int) -> dict:
+    """b) / c) yi-9b at full width, TRAIN_LAYERS deep, S=4096,
+    grad_accum 2, remat on (as ``build`` sets it for a full config):
+    before step 0, forward_loss without a gradient on its two
+    microbatches, on the reference path and through the flash kernel
+    (attention_impl="pallas"); then TRAIN_STEPS timed steps and one
+    profiled."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import _resolve_kernels
+    from repro_torch.models import forward_loss, param_count
+
+    cfg, shape, run = train.build("yi-9b", reduced=False, batch=batch,
+                                  seq=4096, compute_dtype=dtype,
+                                  grad_accum=2)
+    cfg = replace(cfg, num_layers=TRAIN_LAYERS)
+    run = run.replace(model=cfg)
+    rel = 1e-2 if dtype == "bfloat16" else 1e-6
+    torch.cuda.reset_peak_memory_stats()
+    tr = train.Trainer(cfg, shape, run, seed=2021, device=dev)
+    n_params = param_count(tr.params)
+    b0, n = tr.pipe.batch(0), batch // 2
+    mbs = [{k: v[i * n:(i + 1) * n] for k, v in b0.items()} for i in (0, 1)]
+    hooks = _resolve_kernels(run.replace(attention_impl="pallas"))
+    before = {}
+    with torch.no_grad():
+        for label, kw in (("reference", {}), ("kernel", hooks)):
+            ops.reset_launches()
+            before[label] = sum(float(forward_loss(
+                tr.params, cfg, mb, compute_dtype=getattr(torch, dtype),
+                run_cfg=run, **kw)[0]) for mb in mbs) / 2
+            want = 2 * TRAIN_LAYERS if label == "kernel" else 0
+            if ops.LAUNCHES["flash_attention"] != want:
+                fail(f"train {dtype}: {label} forward launched "
+                     f"{ops.LAUNCHES}, expected {want} flash launches")
+    ops.reset_launches()
+    secs, losses, gnorms = [], [], []
+    for s in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += tr.train(s + 1, log_every=0)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        gnorms.append(tr.last_metrics["grad_norm"])
+    if not all(math.isfinite(g) and g > 0 for g in gnorms):
+        fail(f"train {dtype}: grad_norm {gnorms}")
+    if any(ops.LAUNCHES.values()):
+        fail(f"train {dtype}: the train steps launched {ops.LAUNCHES}")
+    ln_v = math.log(cfg.vocab_size)
+    if not all(math.isfinite(x) and abs(x - ln_v) <= 2.0 for x in losses):
+        fail(f"train {dtype}: losses {losses} not within 2.0 of ln "
+             f"{cfg.vocab_size} = {ln_v:.4f}")
+    d_ref = abs(losses[0] - before["reference"]) / abs(before["reference"])
+    d_kern = abs(losses[0] - before["kernel"]) / abs(before["kernel"])
+    tol_kern = 1e-2 if dtype == "bfloat16" else 1e-4
+    if not (d_ref <= rel and d_kern <= tol_kern):
+        fail(f"train {dtype}: step 0's loss {losses[0]} vs forward_loss "
+             f"{before['reference']} ({d_ref:.3g}, tol {rel}) and through "
+             f"the flash kernel {before['kernel']} ({d_kern:.3g}, tol "
+             f"{tol_kern})")
+    peak = torch.cuda.max_memory_allocated()
+    step_s = float(np.median(secs[2:]))
+    # one more step, profiled: the device's busy share of a step
+    kern = profiled(lambda: tr.train(TRAIN_STEPS + 1, log_every=0),
+                    cpu=False)
+    busy = sum(e.self_device_time_total for e in kern) / 1e6 if kern \
+        else None
+    tokens = batch * shape.seq_len
+    res = {"dtype": dtype, "params": n_params, "batch": batch,
+           "seq": shape.seq_len, "grad_accum": 2, "losses": losses,
+           "grad_norms": gnorms,
+           "step_s": secs, "median_step_s": step_s,
+           "tokens_per_s": tokens / step_s, "peak_bytes": peak,
+           "busy_s": busy, "busy_share": busy / step_s if busy else None,
+           "loss_vs_forward": d_ref, "loss_vs_kernel_forward": d_kern}
+    log(f"[train] {cfg.name} {TRAIN_LAYERS}L full width {dtype} "
+        f"({n_params / 1e9:.3f} B params) B={batch} S={shape.seq_len} "
+        f"grad_accum 2 remat: losses {[round(x, 4) for x in losses]}, "
+        f"grad_norm {[round(g, 4) for g in gnorms]}; "
+        f"step 0 vs forward_loss {d_ref:.3g} (tol {rel}), vs the flash "
+        f"kernel's forward {d_kern:.3g} (tol {tol_kern}); step s "
+        f"{[round(x, 3) for x in secs]}, median of steps 2-"
+        f"{TRAIN_STEPS - 1} {step_s:.3f} s ({tokens / step_s:.1f} train "
+        f"tokens/s); peak {peak / 2 ** 30:.1f} GiB")
+    if kern:
+        log(f"[train] profile {dtype}: device busy {busy:.3f} s of a "
+            f"{step_s:.3f} s step ({100 * busy / step_s:.1f}%), "
+            f"{sum(e.count for e in kern)} kernel launches")
+        for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
+            log(f"[train]   {e.self_device_time_total / 1e3:9.1f} ms "
+                f"{e.count:6d}x  {e.key[:90]}")
+    else:
+        log(f"[train] profile {dtype}: device time not measured: the "
+            "profiler trace holds no CUDA kernels")
+    return res
+
+
+def _dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def preemption_round_trip(dev) -> dict:
+    """d) on the model of b) (f32, full width, TRAIN_LAYERS deep): train
+    4 steps with a save_blocking at step 2 and a save_async at step 4; a
+    new Trainer on the directory restores step 4 (the latest); restore
+    step 2, run steps 3-4; the parameters equal the uninterrupted run's
+    within rtol = atol = 1e-6 (the JAX package's test's tolerance).
+    Where the disk cannot hold two checkpoints, the reduced yi-9b of a)
+    at the same depth instead.  The directory is deleted afterwards."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import train
+    from repro_torch.models import param_count
+    from repro_torch.tree import flatten
+
+    ckpt = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ckpt.mkdir(parents=True)
+    cfg, shape, run = train.build("yi-9b", reduced=False, batch=2, seq=4096,
+                                  grad_accum=2)
+    cfg = replace(cfg, num_layers=TRAIN_LAYERS)
+    need = 2 * 3 * 4 * param_count(train.init_params(cfg, 0,
+                                                     device="meta"))
+    free = shutil.disk_usage(ckpt).free
+    model = "full width"
+    if free < 1.2 * need:
+        log(f"[train] preemption: {free / 1e9:.1f} GB free, two "
+            f"checkpoints need {need / 1e9:.1f} GB: the round trip runs "
+            f"on reduced yi-9b, {TRAIN_LAYERS} layers, instead")
+        cfg = replace(get_reduced("yi-9b"), num_layers=TRAIN_LAYERS)
+        model = "reduced"
+    run = run.replace(model=cfg)
+    try:
+        tr = train.Trainer(cfg, shape, run, ckpt_dir=str(ckpt), seed=2021,
+                           device=dev)
+        tr.train(2, log_every=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.ckpt.save_blocking(2, tr.trees())
+        save_s = time.perf_counter() - t0
+        tr.train(4, log_every=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.ckpt.save_async(4, tr.trees())
+        async_block_s = time.perf_counter() - t0
+        tr.ckpt.wait()
+        async_total_s = time.perf_counter() - t0
+        nbytes = _dir_bytes(ckpt / "step_0000000004")
+        full = tr.params
+        del tr
+        torch.cuda.empty_cache()
+
+        tr = train.Trainer(cfg, shape, run, ckpt_dir=str(ckpt), seed=2021,
+                           device=dev)
+        if tr.step_num != 4:
+            fail(f"train preemption: a new Trainer resumed at step "
+                 f"{tr.step_num}, not the latest checkpoint's 4")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.restore(str(ckpt), step=2)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        tr.train(4, log_every=0)
+        pairs = list(zip([x.detach() for _, x in flatten(tr.params)],
+                         [x.detach() for _, x in flatten(full)]))
+        err = max(float((a - b).abs().max()) for a, b in pairs)
+        close = all(torch.allclose(a, b, rtol=1e-6, atol=1e-6)
+                    for a, b in pairs)
+        bitwise = all(torch.equal(a, b) for a, b in pairs)
+        if not close:
+            fail(f"train preemption: resumed parameters differ from the "
+                 f"uninterrupted run's by {err:.3g} (rtol = atol = 1e-6)")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    res = {"model": model, "checkpoint_bytes": nbytes, "save_blocking_s":
+           save_s, "save_async_blocks_s": async_block_s,
+           "save_async_total_s": async_total_s, "restore_s": restore_s,
+           "max_abs_err": err, "bitwise": bitwise}
+    log(f"[train] preemption round trip ({model}, f32): checkpoint "
+        f"{nbytes / 1e9:.2f} GB (params + mu + nu), save_blocking "
+        f"{save_s:.2f} s, save_async blocks the step {async_block_s:.2f} s "
+        f"(written after {async_total_s:.2f} s), restore {restore_s:.2f} "
+        f"s; resumed vs uninterrupted max abs {err:.3g} (rtol = atol = "
+        f"1e-6), bitwise equal: {bitwise}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to PyTorch",
@@ -1579,6 +1852,16 @@ def main() -> int:
         f"heads) initialised on the card in {time.perf_counter() - t0:.2f} s")
     xlstm = xlstm_forward_phase(params, cfg, dev)
     serve_phase(params, cfg, dev, tag="xserved")
+    log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
+    del params                         # the card to itself for training
+    torch.cuda.empty_cache()
+
+    train_vs_cpu(dev)
+    trained = {"card": smi,
+               "float32": full_width_train(dev, "float32", 2),
+               "bfloat16": full_width_train(dev, "bfloat16", 4),
+               "preemption": preemption_round_trip(dev)}
+    log("[train] " + json.dumps(trained))
     log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
 
     # the main path's own shapes: the bf16 forwards' (B=2: yi-9b's

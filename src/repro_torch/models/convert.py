@@ -1,11 +1,12 @@
-"""Weights across: the JAX package's ``init_params`` tree -> the port's.
+"""Trees across between the JAX package's layout and the port's.
 
 ``params_from_jax`` takes the JAX tree as nested dicts of numpy arrays
 (``jax.tree.map(np.asarray, params)``), unstacks the leading ``n_super``
 axis of ``stack`` into the port's list of per-super-block dicts, and
 keeps every leaf's layout (``wq`` (d, H, hd), ``wo`` (H, hd, d), ...).
 Every leaf must map onto a leaf of the port's tree for the config, with
-its shape; an unknown or missing leaf raises.
+its shape; an unknown or missing leaf raises.  ``params_to_jax`` is its
+inverse for any port tree (parameters, gradients, optimizer state).
 """
 from __future__ import annotations
 
@@ -14,17 +15,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.model import init_params
-
-
-def _flatten(node, prefix=()):
-    if isinstance(node, dict):
-        for key in sorted(node):
-            yield from _flatten(node[key], prefix + (key,))
-    elif isinstance(node, (list, tuple)):
-        for i, child in enumerate(node):
-            yield from _flatten(child, prefix + (i,))
-    else:
-        yield prefix, node
+from repro_torch.tree import flatten, map_tree
 
 
 def _put(tree, path, value):
@@ -38,10 +29,10 @@ def params_from_jax(tree, cfg, device=None):
     f32 tensors on ``device`` (the card unless told otherwise)."""
     dev = resolve_device(device)
     out = init_params(cfg, torch.Generator(), device="meta")
-    want = dict(_flatten(out))
+    want = dict(flatten(out))
     n = cfg.n_super
     seen = set()
-    for path, arr in _flatten(tree):
+    for path, arr in flatten(tree):
         arr = np.asarray(arr, dtype=np.float32)
         if path[:1] == ("stack",):
             if arr.shape[:1] != (n,):
@@ -64,3 +55,19 @@ def params_from_jax(tree, cfg, device=None):
     if missing:
         raise KeyError(f"the JAX tree lacks {missing}")
     return out
+
+
+def params_to_jax(tree):
+    """The JAX package's layout of a port tree, as nested dicts of numpy
+    arrays: each list (the stack) re-stacked along a new leading axis
+    (``n_super``), bf16 leaves as f32 (numpy has no bf16), every other
+    dtype kept."""
+    if isinstance(tree, dict):
+        return {k: params_to_jax(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return map_tree(lambda *xs: np.stack(xs),
+                        *(params_to_jax(c) for c in tree))
+    t = tree.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.cpu().numpy()

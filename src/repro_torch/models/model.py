@@ -63,9 +63,11 @@ def _assemble_inputs(p, cfg, batch, dtype):
 def forward_loss(p, cfg: ModelConfig, batch, *, compute_dtype=torch.bfloat16,
                  run_cfg=None, flash_fn=None, gmm_fn=None, scan_fn=None,
                  chunk_fn=None):
-    """Training forward without the gradient: mean CE loss + the MoE aux
-    loss (zero for models without MoE).  targets == -1 are masked.  The
-    kernels come in only through the hooks: ``flash_fn`` (attention),
+    """Training forward: mean CE loss + the MoE aux loss (zero for models
+    without MoE).  targets == -1 are masked.  ``run_cfg.remat``
+    recomputes each super-block in the backward pass
+    (``launch.steps.make_train_step`` takes the gradient).  The kernels
+    come in only through the hooks: ``flash_fn`` (attention),
     ``gmm_fn`` (the MoE experts' grouped products), ``scan_fn`` (the
     Mamba selective scan) and ``chunk_fn`` (the mLSTM's chunkwise
     recurrence); ``launch.steps._resolve_kernels`` gives all four for
@@ -73,7 +75,7 @@ def forward_loss(p, cfg: ModelConfig, batch, *, compute_dtype=torch.bfloat16,
     q_chunk = getattr(run_cfg, "attention_q_chunk", 1024) if run_cfg else 1024
     x, positions = _assemble_inputs(p, cfg, batch, compute_dtype)
     x, _, aux = tf.apply_stack(p["stack"], x, cfg, positions=positions,
-                               causal=True, q_chunk=q_chunk,
+                               causal=True, q_chunk=q_chunk, run_cfg=run_cfg,
                                flash_fn=flash_fn, gmm_fn=gmm_fn,
                                scan_fn=scan_fn, chunk_fn=chunk_fn)
     x = apply_norm(p["final_norm"], x, cfg.norm_type)

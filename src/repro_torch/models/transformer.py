@@ -6,16 +6,17 @@ The port of the JAX package's ``models/transformer.py`` for the mixers
 pre-norm FFN.  The JAX package stacks each leaf on a leading
 ``n_super`` axis and scans it; here the stack is a list with one dict
 per super-block (same keys, ``{"b0": ..., "b7": ...}``), walked by a
-Python loop.  Nothing here takes a gradient, so there is no
-rematerialization.  The kernels come in through hooks: ``flash_fn``
-(attention), ``gmm_fn`` (MoE experts), ``scan_fn`` (Mamba) and
-``chunk_fn`` (the mLSTM).  Every other branch of the JAX package
+Python loop; with ``run_cfg.remat`` each super-block is recomputed in
+the backward pass (``torch.utils.checkpoint``).  The kernels come in
+through hooks: ``flash_fn`` (attention), ``gmm_fn`` (MoE experts),
+``scan_fn`` (Mamba) and ``chunk_fn`` (the mLSTM).  Every other branch of the JAX package
 raises, naming the ROADMAP item that ports it (encoder-decoder inputs
 raise in ``models/model.py``).
 """
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
@@ -157,21 +158,38 @@ def init_stack(gen, cfg, device):
             for _ in range(cfg.n_super)]
 
 
+def _remat(fn, run_cfg):
+    """``fn`` recomputed in the backward pass when ``run_cfg.remat``.
+    The JAX package's policies: "full" saves nothing inside the
+    super-block, "dots" saves its matmul outputs, "none" is no remat.
+    PyTorch's checkpoint has no counterpart of "dots", so both "dots"
+    and "full" recompute the whole super-block (its input is kept);
+    the values are the same either way."""
+    if run_cfg is None or not getattr(run_cfg, "remat", False) or \
+            getattr(run_cfg, "remat_policy", "dots") == "none":
+        return fn
+
+    def remat_fn(*args):
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return remat_fn
+
+
 def apply_stack(stack_params, x, cfg, *, positions, causal=True, q_chunk=1024,
-                collect_cache=False, flash_fn=None, gmm_fn=None,
+                run_cfg=None, collect_cache=False, flash_fn=None, gmm_fn=None,
                 scan_fn=None, chunk_fn=None):
     """Run the super-blocks over x.  Returns (x, caches|None, aux): caches
     are one ``{"b<i>": seed}`` per super-block (``{"k","v"}`` for
     attention, ``{"h","conv"}`` for Mamba, ``{"C","n","m","conv"}`` for
     the mLSTM, ``{"c","n","h","m","conv"}`` for the sLSTM), aux is the
-    sum of the MoE layers' aux losses."""
+    sum of the MoE layers' aux losses.  ``run_cfg.remat`` recomputes
+    each super-block in the backward pass (see ``_remat``)."""
     for fn, what in ((scan_fn, "Mamba"), (chunk_fn, "mLSTM")):
         if collect_cache and fn is not None:
             raise ValueError(f"apply_stack: a kernel hook returns no {what} "
                              "state, so a cache is collected without it")
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    caches = []
-    for layer_p in stack_params:
+
+    def body(layer_p, x, aux):
         seeds = {}
         for i, (m, f) in enumerate(cfg.block_defs):
             x, seeds[f"b{i}"], a = apply_subblock(
@@ -179,6 +197,13 @@ def apply_stack(stack_params, x, cfg, *, positions, causal=True, q_chunk=1024,
                 causal=causal, q_chunk=q_chunk, flash_fn=flash_fn,
                 gmm_fn=gmm_fn, scan_fn=scan_fn, chunk_fn=chunk_fn)
             aux = aux + a
+        return x, (seeds if collect_cache else None), aux
+
+    body = _remat(body, run_cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    caches = []
+    for layer_p in stack_params:
+        x, seeds, aux = body(layer_p, x, aux)
         if collect_cache:
             caches.append(seeds)
     return x, (caches if collect_cache else None), aux

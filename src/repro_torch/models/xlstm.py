@@ -295,7 +295,9 @@ def slstm_forward(p, x, num_heads, xcfg, *, state=None):
         carry = (state["c"], state["n"], state["h"], state["m"])
     pre = torch.stack([g.to(f32).reshape(B, S, num_heads, dh)
                        for g in (gz, gi, gf, go)], dim=3)  # (B,S,H,4,dh)
-    r_all = torch.cat([p[f"r_{g}"] for g in _SLSTM_GATES], dim=-1)
+    # f32 whatever the parameters' dtype: the JAX einsum promotes bf16
+    # recurrent matrices against the f32 h
+    r_all = torch.cat([p[f"r_{g}"] for g in _SLSTM_GATES], dim=-1).to(f32)
     hs = []
     for t in range(S):
         carry = _slstm_step(r_all, carry, pre[:, t])

@@ -14,7 +14,7 @@ On the CPU (here):
     rates pass 8 (the draw's normal branch), one of 40 groups (more than
     a warp) and one whose cells do not fit in shared memory;
   * fed the JAX engine's draws, its integer counters equal the JAX
-    engine's;
+    engine's (the planted lam > 8 case on the "ops" route too);
   * the route rule ``ops.sweep_route``, the wrapper's checks, the
     kernel's argument order, and that an engine with no card and no CPU
     request raises.
@@ -238,15 +238,14 @@ def _jax_uniforms(eng):
     return lambda i: np.array(draw(jnp.int32(i)))
 
 
-@pytest.mark.parametrize("case", ["trio", "dataplane"])
-def test_fed_jax_uniforms_fused_counters_equal_jax_engine(case):
+def _assert_fed_jax_counters_equal(case, route):
     from repro.core.spec import CampaignSpec as JaxSpec
     from repro.core.sweep_jax import run_jax
     specs, seeds = _cases()[case]
     lanes = [(JaxSpec.from_json(s.to_json()), seed)
              for s in specs for seed in seeds]
     want = run_jax(lanes, use_pallas=False)
-    with ops._force_route("campaign_sweep", "fused"):
+    with ops._force_route("campaign_sweep", route):
         got = run_torch([(s, seed) for s in specs for seed in seeds],
                         device="cpu", uniforms=_jax_uniforms)
     for g, w in zip(got, want):
@@ -255,6 +254,19 @@ def test_fed_jax_uniforms_fused_counters_equal_jax_engine(case):
         assert g["by_provider"] == w["by_provider"]
         for k in ("cost", "accel_hours", "egress_usd"):
             assert g[k] == pytest.approx(w[k], rel=1e-5, abs=0.05), k
+
+
+@pytest.mark.parametrize("case", ["trio", "dataplane"])
+def test_fed_jax_uniforms_fused_counters_equal_jax_engine(case):
+    _assert_fed_jax_counters_equal(case, "fused")
+
+
+@pytest.mark.parametrize("route", ["fused", "ops"])
+def test_fed_jax_uniforms_hot_case_counters_equal_jax_engine(route):
+    """The planted lam > 8 case (the Poisson draw's rounded-normal
+    branch, ROADMAP C12) on JAX's draws: the JAX engine's integer
+    counters and by_provider on both CPU routes."""
+    _assert_fed_jax_counters_equal("hot", route)
 
 
 # -- the route rule, the wrapper, the entry's argument order ---------------
