@@ -35,9 +35,12 @@ Phases (any failure raises and exits non-zero with no result line):
   5. data    the data-plane golden spec at 64 seeds, the same checks as 3;
   6. flash   the flash attention kernel against its plain version at the
              yi-9b shape (B=2, S=4096, H=32, Hkv=4, D=128, causal; and
-             B=1, the f32 forward's) and the
-             edge shapes of tests/test_kernels.py, plus q_offset and
-             kv_len cases, in f32 (2e-5) and bf16 (2e-2) elementwise and
+             B=1, the f32 forward's), the edge shapes of
+             tests/test_kernels.py, q_offset and kv_len cases, and the
+             model zoo's shapes (qwen3-moe-30b-a3b's after its qk-norm,
+             internvl2-2b's H=16 / Hkv=8, whisper-large-v3's decoder at
+             S=448, H=Hkv=20, D=64), in f32 (2e-5) and bf16 (2e-2)
+             elementwise and
              by the worst query row's relative error (1e-5 / 1e-2), on
              each route that takes the case (bf16 with D = 64 / 128: the
              tensor-core "wgmma" route and the CUDA-core "simt" route,
@@ -62,7 +65,8 @@ Phases (any failure raises and exits non-zero with no result line):
              logits within 1e-3 (f32); decode tokens/s;
   9. gmm     the moe_gmm kernel against its plain version at the
              jamba-v0.1-52b shapes (E=16, C=1280 and 640, D=4096 -> F=14336
-             and back), the decode C=8 and an unaligned shape, f32 and
+             and back), the decode C=8, an unaligned shape and
+             qwen3-moe-30b-a3b's (E=128, C=640, 2048 -> 768 and back), f32 and
              bf16 (bf16 on both routes, as in 6): max |err| / max |plain|
              within 1e-5 (f32) / 1e-2 (bf16); per case and route the
              per-call, device, plain version's and torch.bmm's times (the
@@ -122,7 +126,7 @@ Phases (any failure raises and exits non-zero with no result line):
              8 requests as in 8, and the prefill-vs-decode check;
  16. train   the xlstm weights freed, the training path (the reference
              path under autograd: no kernel of the port has a backward):
-             a) reduced yi-9b, jamba-v0.1-52b and xlstm-350m, f32, 3
+             a) the ten reduced architectures, f32, 3
              steps on the card and on the CPU from the same parameters
              and batches: losses within 1e-5 relative, grad_norm within
              1e-4, parameters within 2 x the summed learning rates;
@@ -142,7 +146,27 @@ Phases (any failure raises and exits non-zero with no result line):
              equality reported), with the checkpoint's bytes, the save,
              restore and async-blocking seconds; a ``[train] {...}`` line
              gathers the numbers with the card's name and power limit;
- 17. report  a ``{"kernels": [...]}`` line (each entry with its route,
+ 17. zoo     the rest of the model zoo, one model at a time on the card
+ -20.        (random weights from init_params, seed 2021; each freed
+             before the next): 17 qwen3-moe-30b-a3b at full width, 8 of
+             48 layers (5.6 B parameters), 18 minicpm3-4b (MLA, 62
+             layers), 19 internvl2-2b (24 layers, 256 patch embeds + 3,840
+             tokens), 20 whisper-large-v3 (32 + 32 layers, 1,500 frame
+             embeds, 448 tokens): forward_loss on the port's synthetic
+             batch in bf16 B=2 (qwen3 also f32 B=1) through the kernels
+             and through the reference path, within 1e-2 (bf16) / 1e-4
+             (f32) relative, launches flash 8 / 0 / 24 / 32 (decoder
+             self-attention only: MLA, the encoder and cross-attention
+             run the chunked path, as in the JAX package) and moe_gmm 24
+             / 0 / 0 / 0, all wgmma in bf16 and simt in f32, loss within
+             2.0 of ln vocab, a profiled kernels forward (busy share);
+             for qwen3, minicpm3 and whisper the server run of 8 (whisper
+             against its zeroed cross cache, as the JAX server) and
+             prefill vs decode (whisper: with the prefill's cross kv);
+             for whisper, 8 decode steps from its prefill's caches, each
+             within 1e-3 of the next prefill's logits; ``[time]`` after
+             each model;
+ 21. report  a ``{"kernels": [...]}`` line (each entry with its route,
              "cuda", and "cuda_route", the kernel's route on the main path:
              "wgmma" or "simt"; flash attention and moe_gmm have one entry
              per route, the simt one, "flash_attention.simt",
@@ -651,6 +675,14 @@ FLASH_CASES = [
      {"causal": True, "q_offset": 1024}),
     ("kv_len", False, (64, 8, 256, 1024, 128),
      {"causal": False, "kv_len": 700}),
+    # the model zoo's shapes (phases 17-20): qwen3-moe-30b-a3b's after its
+    # qk-norm (q and k RMS-normed per head, as the model feeds them),
+    # internvl2-2b's over 256 patches + 3,840 tokens, whisper-large-v3's
+    # decoder self-attention (D 64, 448 queries: 3.5 tiles of 128)
+    ("qwen3-qknorm", True, (2, 4096, 4096, 32, 4, 128, True),
+     {"qk_norm": True}),
+    ("internvl2", True, (2, 4096, 4096, 16, 8, 128, True), {}),
+    ("whisper-dec", True, (2, 448, 448, 20, 20, 64, True), {}),
 ]
 
 
@@ -700,6 +732,10 @@ def check_flash(dev) -> dict:
                 B, H, Hkv, causal = BKV, BHG // BKV, 1, kw["causal"]
             q, k, v = (torch.randn(s, generator=gen, device=dev).to(dtype)
                        for s in (q_shape, kv_shape, kv_shape))
+            if kw.get("qk_norm"):
+                from repro_torch.models.layers import rms_head_norm
+                one = torch.ones(D, device=dev)
+                q, k = rms_head_norm(q, one), rms_head_norm(k, one)
             if model:
                 def kern():
                     return ops.flash_attention(q, k, v, causal=causal)
@@ -908,7 +944,8 @@ def profile_forward(fn, wall: float, tag: str = "forward",
 def serve_phase(params, cfg, dev, tag: str = "serve") -> None:
     """BatchServer on the card: 8 requests, then prefill vs decode (with
     the MoE layers' capacity drops in the prefill counted: decode never
-    drops, so a prefill that drops would differ by design)."""
+    drops, so a prefill that drops would differ by design; an
+    encoder-decoder's decode cache takes the prefill's cross kv)."""
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import BatchServer, Request
     from repro_torch.models import decode_step, init_cache, prefill
@@ -971,10 +1008,15 @@ def serve_phase(params, cfg, dev, tag: str = "serve") -> None:
         out = route(*args, **kw)
         dropped.append(int((~out[-1]).sum()))        # keep = pos < C
         return out
+    batch = {"tokens": prompt}
+    if cfg.is_encdec:                  # the frames the prefill encodes
+        batch["enc_embeds"] = 0.02 * torch.randn(
+            (1, cfg.encoder.n_frames, cfg.d_model), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(5))
     moe_mod._route = counting_route
     try:
-        pre, _ = prefill(params, cfg, {"tokens": prompt},
-                         compute_dtype=torch.float32)
+        pre, pre_caches = prefill(params, cfg, batch,
+                                  compute_dtype=torch.float32)
     finally:
         moe_mod._route = route
     n_moe = cfg.n_super * sum(f == "moe" for _, f in cfg.block_defs)
@@ -982,6 +1024,10 @@ def serve_phase(params, cfg, dev, tag: str = "serve") -> None:
         fail(f"{tag}: the prefill's MoE layers dropped {dropped} tokens "
              f"({n_moe} layers); the check needs a drop-free prompt")
     caches = init_cache(cfg, 1, 9, torch.float32, device=dev)
+    if cfg.is_encdec:                  # decode against the same encoding
+        for c, pc in zip(caches, pre_caches):
+            for name in c:
+                c[name]["cross"] = pc[name]["cross"]
     for t in range(8):
         step, caches = decode_step(params, cfg, caches, prompt[:, t:t + 1], t,
                                    compute_dtype=torch.float32)
@@ -1005,7 +1051,11 @@ GMM_CASES = [("jamba-up-c1280", 16, 1280, 4096, 14336),
              ("jamba-up-c640", 16, 640, 4096, 14336),
              ("jamba-down-c640", 16, 640, 14336, 4096),
              ("decode-c8", 16, 8, 4096, 14336),
-             ("unaligned", 3, 72, 40, 56)]
+             ("unaligned", 3, 72, 40, 56),
+             # qwen3-moe-30b-a3b's at B*S = 8192 (phase 17): 128 experts
+             # of C = 640, d_model 2048 -> F 768 and back
+             ("qwen3-up-c640", 128, 640, 2048, 768),
+             ("qwen3-down-c640", 128, 640, 768, 2048)]
 # (label, B, S, di, N, stream dtypes xc / dt / bm / cm or None for all
 # in the case's dtype): jamba's mixers at B=2 bf16 and B=1 f32, and the
 # edge shapes of tests/test_kernels.py
@@ -1511,7 +1561,9 @@ def xlstm_forward_phase(params, cfg, dev) -> dict:
 
 # -- phase 16: training -----------------------------------------------------
 
-TRAIN_ARCHS = ("yi-9b", "jamba-v0.1-52b", "xlstm-350m")
+TRAIN_ARCHS = ("whisper-large-v3", "qwen3-moe-30b-a3b", "kimi-k2-1t-a32b",
+               "minicpm3-4b", "yi-9b", "nemotron-4-15b", "minitron-8b",
+               "jamba-v0.1-52b", "internvl2-2b", "xlstm-350m")
 # yi-9b at full width, 4 of its 48 layers: 48 layers' f32 train state
 # (params + grads + mu + nu, ~141 GB) would not fit the card's 80 GB
 TRAIN_LAYERS = 4
@@ -1753,6 +1805,187 @@ def preemption_round_trip(dev) -> dict:
         f"1e-6), bitwise equal: {bitwise}")
     return res
 
+# -- phases 17-20: the rest of the model zoo ---------------------------------
+
+# (arch, layers kept (None: the full depth), the batch's seq_len, an f32
+# B=1 forward on the CUDA-core routes too, a server run): qwen3's 48
+# layers would be ~120 GB in f32, 8 of them (~5.6 B parameters) fit the
+# card; internvl2-2b's 4,096 positions are 256 patches + 3,840 tokens;
+# whisper-large-v3's decoder reads 448 tokens over 1,500 frames
+ZOO = (("qwen3-moe-30b-a3b", 8, 4096, True, True),
+       ("minicpm3-4b", None, 4096, False, True),
+       ("internvl2-2b", None, 4096, False, False),
+       ("whisper-large-v3", None, 448, False, True))
+
+
+def zoo_launches(cfg) -> dict:
+    """A forward's kernel launches: flash once per decoder self-attention
+    (MLA, an encoder and cross-attention run the chunked path, as in the
+    JAX package), moe_gmm three times per MoE layer."""
+    layers = cfg.block_defs * cfg.n_super
+    attn = sum(m == "attn" for m, _ in layers)
+    return {"flash_attention": 0 if cfg.attention_type == "mla" else attn,
+            "moe_gmm": 3 * sum(f == "moe" for _, f in layers)}
+
+
+def zoo_forward_phase(params, cfg, dev, seq: int, with_f32: bool) -> dict:
+    """forward_loss at full width through the kernels (the resolver's
+    hooks for attention_impl="pallas") and the reference path, bf16 B=2
+    (and f32 B=1 with ``with_f32``), on the port's own synthetic batch
+    (make_batch: zipf tokens, 0.02 N(0,1) frame or patch embeds): the
+    launches and routes of zoo_launches, a finite loss within 2.0 of
+    ln vocab, kernels vs reference within 1e-2 (bf16) / 1e-4 (f32)
+    relative; the wall, and a profiled kernels forward (the device's
+    busy share, device ms per launch)."""
+    from repro_torch.configs import REDUCED_SHAPE, RunConfig, ShapeConfig
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import _resolve_kernels
+    from repro_torch.models import forward_loss
+
+    hooks = _resolve_kernels(RunConfig(model=cfg, shape=REDUCED_SHAPE,
+                                       attention_impl="pallas"))
+    kernel_launches = zoo_launches(cfg)
+    ln_v = math.log(cfg.vocab_size)
+    runs = [(torch.bfloat16, 2, 1e-2)] + \
+        ([(torch.float32, 1, 1e-4)] if with_f32 else [])
+    out = {}
+    for dtype, B, rel in runs:
+        batch = make_batch(cfg, ShapeConfig("zoo", seq, B, "train"), 0,
+                           seed=2021, device=dev)
+        shapes = {k: tuple(v.shape) for k, v in batch.items()}
+        losses, secs = {}, {}
+        for label, kw in (("kernels", hooks), ("reference", {})):
+            forward_loss(params, cfg, batch, compute_dtype=dtype, **kw)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            loss, parts = forward_loss(params, cfg, batch,
+                                       compute_dtype=dtype, **kw)
+            torch.cuda.synchronize()
+            secs[label] = time.perf_counter() - t0
+            launches, routes = dict(ops.LAUNCHES), dict(ops.ROUTES)
+            want = {name: 0 for name in launches}
+            if label == "kernels":
+                want.update(kernel_launches)
+            if launches != want:
+                fail(f"zoo {cfg.name} {label} {dtype}: launches {launches}, "
+                     f"expected {want}")
+            route = "wgmma" if dtype == torch.bfloat16 else "simt"
+            want_routes = {name: 0 for name in routes}
+            for op in ("flash_attention", "moe_gmm"):
+                want_routes[f"{op}.{route}"] = want[op]
+            if routes != want_routes:
+                fail(f"zoo {cfg.name} {label} {dtype}: routes {routes}, "
+                     f"expected {want_routes}")
+            losses[label] = float(loss)
+            if not math.isfinite(losses[label]) or \
+                    abs(losses[label] - ln_v) > 2.0:
+                fail(f"zoo {cfg.name} {label} {dtype}: loss "
+                     f"{losses[label]} not within 2.0 of ln "
+                     f"{cfg.vocab_size} = {ln_v:.4f}")
+            log(f"[zoo] {cfg.name} {cfg.num_layers}L {str(dtype)[6:]} "
+                f"{shapes} via {label}: loss {losses[label]:.6f} (aux "
+                f"{float(parts['aux']):.6f}), {secs[label]:.3f} s "
+                f"({batch['tokens'].numel() / secs[label]:.1f} tokens/s), "
+                f"launches { {k: launches[k] for k in kernel_launches} } "
+                f"({ {k: n for k, n in routes.items() if n} }), peak "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+            if label == "kernels":
+                prof = profile_forward(
+                    lambda: forward_loss(params, cfg, batch,
+                                         compute_dtype=dtype, **kw),
+                    secs[label], tag=f"zoo {cfg.name} {str(dtype)[6:]}",
+                    kernels=("flash_attention_kernel", "moe_gmm_kernel"))
+                out[route] = {"launches": {k: launches[k]
+                                           for k in kernel_launches},
+                              "device_ms": prof}
+        d = abs(losses["kernels"] - losses["reference"]) \
+            / abs(losses["reference"])
+        if d > rel:
+            fail(f"zoo {cfg.name} {dtype}: kernel loss {losses['kernels']} "
+                 f"vs reference {losses['reference']} ({d:.3g} relative > "
+                 f"{rel})")
+        log(f"[zoo] {cfg.name} {str(dtype)[6:]}: kernels vs reference loss "
+            f"{d:.3g} relative (tol {rel})")
+        out[str(dtype)] = {"losses": losses, "secs": secs, "rel": d}
+        del batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def encdec_continue(params, cfg, dev) -> None:
+    """An encoder-decoder's prefill, then 8 decode steps from its caches
+    (self kv copied into a longer cache, cross kv as the prefill made
+    it), f32 B=1: step t's logits within 1e-3 of the prefill of t + 1
+    tokens."""
+    from repro_torch.models import decode_step, init_cache, prefill
+
+    rng = np.random.default_rng(3)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 16))
+                           .astype(np.int32)).to(dev)
+    enc = 0.02 * torch.randn((1, cfg.encoder.n_frames, cfg.d_model),
+                             device=dev,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(6))
+    f32 = torch.float32
+    _, pre = prefill(params, cfg, {"tokens": tok[:, :8], "enc_embeds": enc},
+                     compute_dtype=f32)
+    caches = init_cache(cfg, 1, 16, f32, device=dev)
+    for c, pc in zip(caches, pre):
+        for name in c:
+            for kv in ("k", "v"):
+                c[name]["self"][kv][:, :8] = pc[name]["self"][kv]
+            c[name]["cross"] = pc[name]["cross"]
+    errs = []
+    for t in range(8, 16):
+        got, caches = decode_step(params, cfg, caches, tok[:, t:t + 1], t,
+                                  compute_dtype=f32)
+        want, _ = prefill(params, cfg, {"tokens": tok[:, :t + 1],
+                                        "enc_embeds": enc},
+                          compute_dtype=f32)
+        vocab = cfg.vocab_size
+        errs.append(float((got[..., :vocab] - want[..., :vocab])
+                          .abs().max()))
+    if not max(errs) <= 1e-3:
+        fail(f"encdec {cfg.name}: decode from the prefill's caches vs "
+             f"the next prefill: max abs errs {errs} (tol 1e-3)")
+    log(f"[encdec] {cfg.name} f32: prefill of 8 tokens, then 8 decode "
+        f"steps from its caches vs the prefill of t + 1 tokens: max abs "
+        f"err {max(errs):.3g} (first step {errs[0]:.3g}; tol 1e-3)")
+
+
+def zoo_phases(dev, t_start: float) -> dict:
+    """Phases 17-20: each model of ZOO initialised on the card (seed
+    2021), its forwards, its server run, then freed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, param_count
+    out = {}
+    for arch, layers, seq, with_f32, serve in ZOO:
+        cfg = get_config(arch)
+        full = cfg.num_layers
+        if layers is not None:
+            cfg = replace(cfg, num_layers=layers)
+        t0 = time.perf_counter()
+        params = init_params(cfg, 2021, device=dev)
+        torch.cuda.synchronize()
+        enc = f" + {cfg.encoder.num_layers} encoder" if cfg.is_encdec else ""
+        log(f"[model] {cfg.name}: {param_count(params) / 1e9:.3f} B f32 "
+            f"parameters ({cfg.num_layers} of {full} layers{enc}; d_model "
+            f"{cfg.d_model}, {cfg.num_heads} heads of {cfg.head_dim}) "
+            f"initialised on the card in {time.perf_counter() - t0:.2f} s; "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB allocated")
+        out[arch] = zoo_forward_phase(params, cfg, dev, seq, with_f32)
+        if serve:
+            serve_phase(params, cfg, dev, tag=f"zoo-serve {arch}")
+        if cfg.is_encdec:
+            encdec_continue(params, cfg, dev)
+        del params
+        torch.cuda.empty_cache()
+        log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1863,6 +2096,7 @@ def main() -> int:
                "preemption": preemption_round_trip(dev)}
     log("[train] " + json.dumps(trained))
     log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
+    zoo_phases(dev, t_start)
 
     # the main path's own shapes: the bf16 forwards' (B=2: yi-9b's
     # attention, jamba's up product and scan) on the wgmma routes, the f32

@@ -1,9 +1,9 @@
 """Architecture registry of the port: ``get_config`` / ``get_reduced``.
 
-The registry holds only the architectures the port runs (yi-9b,
-jamba-v0.1-52b and xlstm-350m so far); ``get_reduced`` shrinks a config
-exactly as the JAX package's ``configs.get_reduced`` does, so the two
-packages build the same reduced model for the parity tests.
+The registry holds the JAX package's ten architectures, in its order;
+``get_reduced`` shrinks a config exactly as the JAX package's
+``configs.get_reduced`` does, so the two packages build the same reduced
+model for the parity tests.
 """
 from __future__ import annotations
 
@@ -13,16 +13,24 @@ from repro_torch.configs.base import (BlockDef, EncoderConfig,  # noqa: F401
                                       FrontendConfig, MLAConfig, MambaConfig,
                                       MoEConfig, ModelConfig, RunConfig,
                                       SHAPES, ShapeConfig, XLSTMConfig)
-from repro_torch.configs import jamba_v01_52b, xlstm_350m, yi_9b
+from repro_torch.configs import (whisper_large_v3, qwen3_moe_30b_a3b,
+                                 kimi_k2_1t_a32b, minicpm3_4b, yi_9b,
+                                 nemotron_4_15b, minitron_8b, jamba_v01_52b,
+                                 internvl2_2b, xlstm_350m)
 
-ARCHS = {m.CONFIG.name: m.CONFIG
-         for m in (yi_9b, jamba_v01_52b, xlstm_350m)}
+ARCHS = {
+    m.CONFIG.name: m.CONFIG
+    for m in (whisper_large_v3, qwen3_moe_30b_a3b, kimi_k2_1t_a32b,
+              minicpm3_4b, yi_9b, nemotron_4_15b, minitron_8b,
+              jamba_v01_52b, internvl2_2b, xlstm_350m)
+}
+
+ARCH_IDS = tuple(ARCHS)
 
 
 def get_config(arch: str) -> ModelConfig:
     if arch not in ARCHS:
-        raise KeyError(f"unknown arch {arch!r}; the port runs "
-                       f"{sorted(ARCHS)}")
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
     return ARCHS[arch]
 
 

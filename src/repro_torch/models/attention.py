@@ -3,29 +3,37 @@
 The port of the JAX package's ``models/attention.py``.  The reference
 path chunks the query dimension (a Python loop where the JAX package
 scans) so a long prefill never materializes a full (S, S) score tensor;
-causal self-attention is also KV-segmented.  ``attention_forward`` takes
-the flash kernel through its ``flash_fn`` hook, as the JAX package does;
-decode always goes through the chunked path.
+causal self-attention is also KV-segmented.  Qwen3's qk-norm (a per-head
+RMS norm of q and k before RoPE) and the encoder-decoder's
+cross-attention are here too.  ``attention_forward`` takes the flash
+kernel through its ``flash_fn`` hook for self-attention, as the JAX
+package does; cross-attention and decode always go through the chunked
+path.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.layers import apply_rope, dense_init, rms_head_norm
 
 # --------------------------------------------------------------------------
 # params
 # --------------------------------------------------------------------------
 
 
-def init_attention(gen, d_model, num_heads, num_kv_heads, head_dim, device):
-    return {
+def init_attention(gen, d_model, num_heads, num_kv_heads, head_dim, device,
+                   qk_norm=False):
+    p = {
         "wq": dense_init(gen, (d_model, num_heads, head_dim), device),
         "wk": dense_init(gen, (d_model, num_kv_heads, head_dim), device),
         "wv": dense_init(gen, (d_model, num_kv_heads, head_dim), device),
         "wo": dense_init(gen, (num_heads, head_dim, d_model), device,
                          in_axis_size=num_heads * head_dim),
     }
+    if qk_norm:
+        p["q_norm"] = torch.ones(head_dim, dtype=torch.float32, device=device)
+        p["k_norm"] = torch.ones(head_dim, dtype=torch.float32, device=device)
+    return p
 
 
 # --------------------------------------------------------------------------
@@ -104,27 +112,41 @@ def chunked_attention(q, k, v, *, q_positions, kv_positions, causal,
 # block-level apply
 # --------------------------------------------------------------------------
 
-def _project_qkv(p, x, rope_theta, positions, use_rope):
+def _project_qkv(p, x, x_kv, rope_theta, q_positions, kv_positions,
+                 qk_norm, use_rope):
     dt = x.dtype
     q = torch.einsum("bsd,dhe->bshe", x, p["wq"].to(dt))
-    k = torch.einsum("bsd,dhe->bshe", x, p["wk"].to(dt))
-    v = torch.einsum("bsd,dhe->bshe", x, p["wv"].to(dt))
+    k = torch.einsum("bsd,dhe->bshe", x_kv, p["wk"].to(dt))
+    v = torch.einsum("bsd,dhe->bshe", x_kv, p["wv"].to(dt))
+    if qk_norm:                           # before RoPE, as in Qwen3
+        q = rms_head_norm(q, p["q_norm"])
+        k = rms_head_norm(k, p["k_norm"])
     if use_rope:
-        q = apply_rope(q, positions, rope_theta)
-        k = apply_rope(k, positions, rope_theta)
+        q = apply_rope(q, q_positions, rope_theta)
+        k = apply_rope(k, kv_positions, rope_theta)
     return q, k, v
 
 
 def attention_forward(p, x, *, positions, causal=True, rope_theta=1e4,
-                      use_rope=True, q_chunk=1024, flash_fn=None):
-    """Full-sequence self-attention (train / prefill).  x: (B,S,D).
-    Returns (out, (k, v)): k/v seed the cache after a prefill."""
-    q, k, v = _project_qkv(p, x, rope_theta, positions, use_rope)
-    if flash_fn is not None:
+                      use_rope=True, qk_norm=False, q_chunk=1024,
+                      x_cross=None, flash_fn=None):
+    """Full-sequence attention (train / prefill / encoder).  x: (B,S,D);
+    x_cross: the encoder's output (B,F,D), the kv source of
+    cross-attention (kv positions arange(F), no RoPE, not causal, always
+    the chunked path: the JAX package gives ``flash_fn`` to
+    self-attention only).  Returns (out, (k, v)): k/v seed the cache
+    after a prefill."""
+    x_kv = x if x_cross is None else x_cross
+    kv_pos = positions if x_cross is None else \
+        torch.arange(x_kv.shape[1], device=x.device)
+    q, k, v = _project_qkv(p, x, x_kv, rope_theta, positions, kv_pos,
+                           qk_norm, use_rope and x_cross is None)
+    if flash_fn is not None and x_cross is None:
         out = flash_fn(q, k, v, causal=causal)
     else:
         out = chunked_attention(q, k, v, q_positions=positions,
-                                kv_positions=positions, causal=causal,
+                                kv_positions=kv_pos,
+                                causal=causal and x_cross is None,
                                 q_chunk=q_chunk)
     dt = x.dtype
     return torch.einsum("bshe,hed->bsd", out, p["wo"].to(dt)), (k, v)
@@ -136,30 +158,43 @@ def init_kv_cache(batch, max_len, num_kv_heads, head_dim, dtype, device):
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def attention_decode(p, x, cache, *, pos, rope_theta=1e4, use_rope=True):
+def attention_decode(p, x, cache, *, pos, rope_theta=1e4, use_rope=True,
+                     qk_norm=False, cross=False):
     """One-token decode.  x: (B,1,D); cache {"k","v"}: (B,Smax,Hkv,D);
     pos: int, the index of the new token.  Returns (out, cache).
 
-    The new k/v are written at ``pos`` for every batch slot, in place
-    (the JAX package returns an updated copy; writing in place spares a
-    copy of the cache per step).  Like ``dynamic_update_slice``, the
-    write index is clamped into the cache."""
+    Self-attention writes the new k/v at ``pos`` for every batch slot,
+    in place (the JAX package returns an updated copy; writing in place
+    spares a copy of the cache per step).  Like ``dynamic_update_slice``,
+    the write index is clamped into the cache.  With ``cross`` the cache
+    is the encoder's static kv: nothing is written, every key is valid
+    and q takes no RoPE."""
     dt = x.dtype
     # filled on the device: no host-to-device copy to wait on
     pos_t = torch.full((1,), pos, dtype=torch.int64, device=x.device)
     q = torch.einsum("bsd,dhe->bshe", x, p["wq"].to(dt))
-    k_new = torch.einsum("bsd,dhe->bshe", x, p["wk"].to(dt))
-    v_new = torch.einsum("bsd,dhe->bshe", x, p["wv"].to(dt))
-    if use_rope:
+    if qk_norm:
+        q = rms_head_norm(q, p["q_norm"])
+    if use_rope and not cross:
         q = apply_rope(q, pos_t, rope_theta)
-        k_new = apply_rope(k_new, pos_t, rope_theta)
+
     smax = cache["k"].shape[1]
-    at = min(max(pos, 0), smax - 1)
-    cache["k"][:, at:at + 1] = k_new.to(cache["k"].dtype)
-    cache["v"][:, at:at + 1] = v_new.to(cache["v"].dtype)
+    if cross:
+        kv_valid = None
+    else:
+        k_new = torch.einsum("bsd,dhe->bshe", x, p["wk"].to(dt))
+        v_new = torch.einsum("bsd,dhe->bshe", x, p["wv"].to(dt))
+        if qk_norm:
+            k_new = rms_head_norm(k_new, p["k_norm"])
+        if use_rope:
+            k_new = apply_rope(k_new, pos_t, rope_theta)
+        at = min(max(pos, 0), smax - 1)
+        cache["k"][:, at:at + 1] = k_new.to(cache["k"].dtype)
+        cache["v"][:, at:at + 1] = v_new.to(cache["v"].dtype)
+        kv_valid = pos + 1
 
     kv_positions = torch.arange(smax, device=x.device)
     out = chunked_attention(q, cache["k"].to(dt), cache["v"].to(dt),
                             q_positions=pos_t, kv_positions=kv_positions,
-                            causal=False, kv_valid_len=pos + 1)
+                            causal=False, kv_valid_len=kv_valid)
     return torch.einsum("bshe,hed->bsd", out, p["wo"].to(dt)), cache

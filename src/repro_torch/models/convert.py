@@ -2,7 +2,8 @@
 
 ``params_from_jax`` takes the JAX tree as nested dicts of numpy arrays
 (``jax.tree.map(np.asarray, params)``), unstacks the leading ``n_super``
-axis of ``stack`` into the port's list of per-super-block dicts, and
+axis of ``stack`` (and of an encoder's ``encoder/stack``, on the
+encoder's own depth) into the port's list of per-super-block dicts, and
 keeps every leaf's layout (``wq`` (d, H, hd), ``wo`` (H, hd, d), ...).
 Every leaf must map onto a leaf of the port's tree for the config, with
 its shape; an unknown or missing leaf raises.  ``params_to_jax`` is its
@@ -30,15 +31,21 @@ def params_from_jax(tree, cfg, device=None):
     dev = resolve_device(device)
     out = init_params(cfg, torch.Generator(), device="meta")
     want = dict(flatten(out))
-    n = cfg.n_super
+    # the stacks and their depths: the decoder's, and an encoder's
+    stacks = {("stack",): cfg.n_super}
+    if cfg.is_encdec:
+        stacks[("encoder", "stack")] = len(out["encoder"]["stack"])
     seen = set()
     for path, arr in flatten(tree):
         arr = np.asarray(arr, dtype=np.float32)
-        if path[:1] == ("stack",):
+        head = next((h for h in stacks if path[:len(h)] == h), None)
+        if head is not None:
+            n = stacks[head]
             if arr.shape[:1] != (n,):
                 raise ValueError(f"{'/'.join(map(str, path))}: shape "
                                  f"{arr.shape} has no leading n_super={n}")
-            targets = [(("stack", i) + path[1:], arr[i]) for i in range(n)]
+            targets = [(head + (i,) + path[len(head):], arr[i])
+                       for i in range(n)]
         else:
             targets = [(path, arr)]
         for dest, a in targets:

@@ -60,6 +60,14 @@ def apply_norm(p, x, norm_type="rmsnorm", eps=1e-6):
     return y.to(x.dtype)
 
 
+def rms_head_norm(x, scale, eps=1e-6):
+    """Per-head RMS norm over the trailing dim (Qwen3's qk-norm), in f32
+    and cast back to x's dtype."""
+    xf = x.to(torch.float32)
+    var = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
+
+
 # --------------------------------------------------------------------------
 # FFN variants
 # --------------------------------------------------------------------------
@@ -116,6 +124,18 @@ def apply_rope(x, positions, theta):
     x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_table(n_pos, d_model, device):
+    """(n_pos, d_model) f32: sin at the even columns, cos at the odd
+    ones, built in numpy f32 as the JAX package builds it."""
+    pos = np.arange(n_pos, dtype=np.float32)[:, None]
+    dim = np.arange(0, d_model, 2, dtype=np.float32)[None, :]
+    ang = pos / (10000.0 ** (dim / d_model))
+    out = np.zeros((n_pos, d_model), np.float32)
+    out[:, 0::2] = np.sin(ang)
+    out[:, 1::2] = np.cos(ang)
+    return torch.from_numpy(out).to(device)
 
 
 # --------------------------------------------------------------------------

@@ -1,0 +1,113 @@
+"""Multi-head Latent Attention (MiniCPM3 / DeepSeek-V2 style).
+
+The port of the JAX package's ``models/mla.py``.  Train and prefill use
+the decompressed form through the chunked reference attention (the JAX
+package runs no kernel here, so neither does the port: q/k head dim
+nope + rope, v head dim ``v_head_dim``); decode uses the absorbed form
+against the compressed latent cache (``c_kv`` + ``k_rope``, kv_lora +
+rope_dim numbers per token instead of 2 * H * head_dim), written in
+place as the port's KV caches are.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.attention import chunked_attention
+from repro_torch.models.layers import (apply_norm, apply_rope, dense_init,
+                                       init_norm)
+
+
+def init_mla(gen, d_model, num_heads, mla, device):
+    qk_head = mla.qk_nope_head_dim + mla.qk_rope_head_dim
+    return {
+        "w_dq": dense_init(gen, (d_model, mla.q_lora_rank), device),
+        "q_norm": init_norm(mla.q_lora_rank, device),
+        "w_uq": dense_init(gen, (mla.q_lora_rank, num_heads, qk_head),
+                           device),
+        "w_dkv": dense_init(gen, (d_model, mla.kv_lora_rank), device),
+        "kv_norm": init_norm(mla.kv_lora_rank, device),
+        "w_kr": dense_init(gen, (d_model, mla.qk_rope_head_dim), device),
+        "w_uk": dense_init(gen, (mla.kv_lora_rank, num_heads,
+                                 mla.qk_nope_head_dim), device),
+        "w_uv": dense_init(gen, (mla.kv_lora_rank, num_heads,
+                                 mla.v_head_dim), device),
+        "wo": dense_init(gen, (num_heads, mla.v_head_dim, d_model), device,
+                         in_axis_size=num_heads * mla.v_head_dim),
+    }
+
+
+def _latents(p, x, positions, mla, rope_theta):
+    """Compressed latents for the kv side: c_kv (B,S,r), k_rope (B,S,dr)."""
+    dt = x.dtype
+    c_kv = apply_norm(p["kv_norm"], x @ p["w_dkv"].to(dt))
+    k_rope = (x @ p["w_kr"].to(dt))[:, :, None, :]             # (B,S,1,dr)
+    k_rope = apply_rope(k_rope, positions, rope_theta)[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def _queries(p, x, positions, mla, rope_theta):
+    """(q_nope (B,S,H,nope), q_rope (B,S,H,rope))."""
+    dt = x.dtype
+    c_q = apply_norm(p["q_norm"], x @ p["w_dq"].to(dt))
+    q = torch.einsum("bsr,rhe->bshe", c_q, p["w_uq"].to(dt))
+    q_nope = q[..., :mla.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., mla.qk_nope_head_dim:], positions, rope_theta)
+    return q_nope, q_rope
+
+
+def mla_forward(p, x, *, positions, mla, rope_theta, q_chunk=1024):
+    """Full-sequence causal MLA (decompressed form).  Returns (out,
+    (c_kv, k_rope)): the latents seed the compressed cache."""
+    dt = x.dtype
+    B, S, _ = x.shape
+    q_nope, q_rope = _queries(p, x, positions, mla, rope_theta)
+    c_kv, k_rope = _latents(p, x, positions, mla, rope_theta)
+    k_nope = torch.einsum("bsr,rhe->bshe", c_kv, p["w_uk"].to(dt))
+    v = torch.einsum("bsr,rhe->bshe", c_kv, p["w_uv"].to(dt))
+    H = q_nope.shape[2]
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, S, H, mla.qk_rope_head_dim)], dim=-1)
+    out = chunked_attention(q, k, v, q_positions=positions,
+                            kv_positions=positions, causal=True,
+                            q_chunk=q_chunk)
+    return (torch.einsum("bshe,hed->bsd", out, p["wo"].to(dt)),
+            (c_kv, k_rope))
+
+
+def init_mla_cache(batch, max_len, mla, dtype, device):
+    return {"c_kv": torch.zeros((batch, max_len, mla.kv_lora_rank),
+                                dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, max_len, mla.qk_rope_head_dim),
+                                  dtype=dtype, device=device)}
+
+
+def mla_decode(p, x, cache, *, pos, mla, rope_theta):
+    """Absorbed-form one-token decode against the compressed cache.
+    x: (B,1,D); pos: int.  The new latents are written at ``pos``
+    (clamped into the cache, as ``dynamic_update_slice`` clamps), in
+    place.  Returns (out, cache)."""
+    dt = x.dtype
+    pos_t = torch.full((1,), pos, dtype=torch.int64, device=x.device)
+    q_nope, q_rope = _queries(p, x, pos_t, mla, rope_theta)   # (B,1,H,*)
+    c_new, kr_new = _latents(p, x, pos_t, mla, rope_theta)
+    smax = cache["c_kv"].shape[1]
+    at = min(max(pos, 0), smax - 1)
+    cache["c_kv"][:, at:at + 1] = c_new.to(cache["c_kv"].dtype)
+    cache["k_rope"][:, at:at + 1] = kr_new.to(cache["k_rope"].dtype)
+    c_kv, k_rope = cache["c_kv"].to(dt), cache["k_rope"].to(dt)
+
+    # absorb W_uk into q: q_abs (B,1,H,r)
+    q_abs = torch.einsum("bshe,rhe->bshr", q_nope, p["w_uk"].to(dt))
+    scale = (mla.qk_nope_head_dim + mla.qk_rope_head_dim) ** -0.5
+    scores = (torch.einsum("bshr,btr->bhst", q_abs, c_kv) +
+              torch.einsum("bshe,bte->bhst", q_rope, k_rope))
+    scores = scores.to(torch.float32) * scale
+    t_pos = torch.arange(smax, device=x.device)
+    scores = scores.masked_fill(~(t_pos <= pos)[None, None, None, :],
+                                torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1).to(dt)
+    ctx = torch.einsum("bhst,btr->bshr", probs, c_kv)             # (B,1,H,r)
+    out = torch.einsum("bshr,rhe->bshe", ctx, p["w_uv"].to(dt))
+    y = torch.einsum("bshe,hed->bsd", out, p["wo"].to(dt))
+    return y, cache

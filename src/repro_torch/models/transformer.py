@@ -1,17 +1,18 @@
 """Block / super-block assembly and the layer stack.
 
-The port of the JAX package's ``models/transformer.py`` for the mixers
-"attn" (GQA self-attention), "mamba", "mlstm" and "slstm", and the FFNs
-"dense", "moe" and "none": each sub-block is a pre-norm mixer, then a
-pre-norm FFN.  The JAX package stacks each leaf on a leading
-``n_super`` axis and scans it; here the stack is a list with one dict
-per super-block (same keys, ``{"b0": ..., "b7": ...}``), walked by a
-Python loop; with ``run_cfg.remat`` each super-block is recomputed in
-the backward pass (``torch.utils.checkpoint``).  The kernels come in
-through hooks: ``flash_fn`` (attention), ``gmm_fn`` (MoE experts),
-``scan_fn`` (Mamba) and ``chunk_fn`` (the mLSTM).  Every other branch of the JAX package
-raises, naming the ROADMAP item that ports it (encoder-decoder inputs
-raise in ``models/model.py``).
+The port of the JAX package's ``models/transformer.py``: the mixers
+"attn" (GQA self-attention, with Qwen3's qk-norm, or MLA), "mamba",
+"mlstm" and "slstm", and the FFNs "dense", "moe" and "none"; each
+sub-block is a pre-norm mixer, then (in an encoder-decoder's decoder) a
+pre-norm cross-attention over the encoder's output, then a pre-norm FFN.
+The JAX package stacks each leaf on a leading ``n_super`` axis and scans
+it; here the stack is a list with one dict per super-block (same keys,
+``{"b0": ..., "b7": ...}``), walked by a Python loop; with
+``run_cfg.remat`` each super-block is recomputed in the backward pass
+(``torch.utils.checkpoint``).  The kernels come in through hooks:
+``flash_fn`` (GQA self-attention), ``gmm_fn`` (MoE experts), ``scan_fn``
+(Mamba) and ``chunk_fn`` (the mLSTM); MLA and cross-attention run the
+chunked reference path, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -20,25 +21,15 @@ import torch.utils.checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import apply_ffn, apply_norm, init_ffn, init_norm
 
-# the ROADMAP item that ports each part the JAX package has beyond GQA
-# attention, Mamba, the xLSTM mixers, and dense / MoE FFNs
-_NOT_PORTED = {"mla": "A9", "qk_norm": "A8"}
 _MIXERS = ("attn", "mamba", "mlstm", "slstm")
 
 
-def _check_supported(cfg, mixer, ffn):
-    parts = [cfg.attention_type if mixer == "attn" else mixer, ffn]
-    if cfg.qk_norm:
-        parts.append("qk_norm")
-    for part in parts:
-        if part in _NOT_PORTED:
-            raise NotImplementedError(
-                f"{cfg.name}: {part!r} is not ported yet: ROADMAP "
-                f"{_NOT_PORTED[part]}")
+def _check_supported(mixer, ffn):
     if mixer not in _MIXERS or ffn not in ("dense", "moe", "none"):
         raise ValueError((mixer, ffn))
 
@@ -47,13 +38,22 @@ def _check_supported(cfg, mixer, ffn):
 # single sub-block
 # --------------------------------------------------------------------------
 
-def init_subblock(gen, cfg, mixer, ffn, device):
-    _check_supported(cfg, mixer, ffn)
+def init_subblock(gen, cfg, mixer, ffn, device, cross=False):
+    _check_supported(mixer, ffn)
     p = {"norm1": init_norm(cfg.d_model, device, cfg.norm_type)}
     if mixer == "attn":
-        p["mixer"] = attn.init_attention(
-            gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
-            device)
+        if cfg.attention_type == "mla":
+            p["mixer"] = mla_mod.init_mla(gen, cfg.d_model, cfg.num_heads,
+                                          cfg.mla, device)
+        else:
+            p["mixer"] = attn.init_attention(
+                gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                cfg.head_dim, device, qk_norm=cfg.qk_norm)
+        if cross:
+            p["norm_cross"] = init_norm(cfg.d_model, device, cfg.norm_type)
+            p["cross"] = attn.init_attention(
+                gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                cfg.head_dim, device)
     elif mixer == "mamba":
         p["mixer"] = mb.init_mamba(gen, cfg.d_model, cfg.mamba, device)
     elif mixer == "mlstm":
@@ -73,16 +73,31 @@ def init_subblock(gen, cfg, mixer, ffn, device):
 
 
 def apply_subblock(p, x, cfg, mixer, ffn, *, positions, causal, q_chunk,
-                   flash_fn=None, gmm_fn=None, scan_fn=None, chunk_fn=None):
+                   enc_out=None, cross=False, flash_fn=None, gmm_fn=None,
+                   scan_fn=None, chunk_fn=None):
     """Full-sequence apply.  Returns (x, cache_seed, aux)."""
-    _check_supported(cfg, mixer, ffn)
+    _check_supported(mixer, ffn)
     h = apply_norm(p["norm1"], x, cfg.norm_type)
     if mixer == "attn":
-        y, (k, v) = attn.attention_forward(
-            p["mixer"], h, positions=positions, causal=causal,
-            rope_theta=cfg.rope_theta, use_rope=(cfg.pos_embedding == "rope"),
-            q_chunk=q_chunk, flash_fn=flash_fn)
-        seed = {"k": k, "v": v}
+        if cfg.attention_type == "mla":
+            y, (c_kv, k_rope) = mla_mod.mla_forward(
+                p["mixer"], h, positions=positions, mla=cfg.mla,
+                rope_theta=cfg.rope_theta, q_chunk=q_chunk)
+            seed = {"c_kv": c_kv, "k_rope": k_rope}
+        else:
+            y, (k, v) = attn.attention_forward(
+                p["mixer"], h, positions=positions, causal=causal,
+                rope_theta=cfg.rope_theta,
+                use_rope=(cfg.pos_embedding == "rope"), qk_norm=cfg.qk_norm,
+                q_chunk=q_chunk, flash_fn=flash_fn)
+            seed = {"k": k, "v": v}
+        if cross:
+            x = x + y
+            hc = apply_norm(p["norm_cross"], x, cfg.norm_type)
+            y, (kc, vc) = attn.attention_forward(
+                p["cross"], hc, positions=positions, causal=False,
+                use_rope=False, q_chunk=q_chunk, x_cross=enc_out)
+            seed = {"self": seed, "cross": {"k": kc, "v": vc}}
     elif mixer == "mamba":
         y, (h_last, conv_last) = mb.mamba_forward(p["mixer"], h, cfg.mamba,
                                                   scan_fn=scan_fn)
@@ -107,14 +122,28 @@ def apply_subblock(p, x, cfg, mixer, ffn, *, positions, causal, q_chunk,
 
 
 def apply_subblock_decode(p, x, state, cfg, mixer, ffn, *, pos):
-    """One-token apply.  Returns (x, new_state); a KV cache in ``state``
-    is written in place, a Mamba or xLSTM state is replaced."""
-    _check_supported(cfg, mixer, ffn)
+    """One-token apply.  Returns (x, new_state); a KV or latent cache in
+    ``state`` is written in place (an encoder-decoder's cross cache is
+    only read), a Mamba or xLSTM state is replaced."""
+    _check_supported(mixer, ffn)
     h = apply_norm(p["norm1"], x, cfg.norm_type)
     if mixer == "attn":
-        y, new_state = attn.attention_decode(
-            p["mixer"], h, state, pos=pos, rope_theta=cfg.rope_theta,
-            use_rope=(cfg.pos_embedding == "rope"))
+        self_state = state["self"] if "cross" in state else state
+        if cfg.attention_type == "mla":
+            y, new_state = mla_mod.mla_decode(
+                p["mixer"], h, self_state, pos=pos, mla=cfg.mla,
+                rope_theta=cfg.rope_theta)
+        else:
+            y, new_state = attn.attention_decode(
+                p["mixer"], h, self_state, pos=pos,
+                rope_theta=cfg.rope_theta,
+                use_rope=(cfg.pos_embedding == "rope"), qk_norm=cfg.qk_norm)
+        if "cross" in state:
+            x = x + y
+            hc = apply_norm(p["norm_cross"], x, cfg.norm_type)
+            y, _ = attn.attention_decode(p["cross"], hc, state["cross"],
+                                         pos=pos, use_rope=False, cross=True)
+            new_state = {"self": new_state, "cross": state["cross"]}
     elif mixer == "mamba":
         y, new_state = mb.mamba_decode(p["mixer"], h, state, cfg.mamba)
     elif mixer == "mlstm":
@@ -135,12 +164,23 @@ def apply_subblock_decode(p, x, state, cfg, mixer, ffn, *, pos):
     return x, new_state
 
 
-def init_subblock_state(cfg, idx_def, batch, max_len, dtype, device):
+def init_subblock_state(cfg, idx_def, batch, max_len, dtype, device,
+                        cross=False):
     mixer, ffn = cfg.block_defs[idx_def]
-    _check_supported(cfg, mixer, ffn)
+    _check_supported(mixer, ffn)
     if mixer == "attn":
-        return attn.init_kv_cache(batch, max_len, cfg.num_kv_heads,
-                                  cfg.head_dim, dtype, device)
+        if cfg.attention_type == "mla":
+            st = mla_mod.init_mla_cache(batch, max_len, cfg.mla, dtype,
+                                        device)
+        else:
+            st = attn.init_kv_cache(batch, max_len, cfg.num_kv_heads,
+                                    cfg.head_dim, dtype, device)
+        if cross:
+            st = {"self": st,
+                  "cross": attn.init_kv_cache(batch, cfg.encoder.n_frames,
+                                              cfg.num_kv_heads, cfg.head_dim,
+                                              dtype, device)}
+        return st
     if mixer == "mamba":
         return mb.init_mamba_state(batch, cfg.d_model, cfg.mamba, dtype,
                                    device)
@@ -152,8 +192,8 @@ def init_subblock_state(cfg, idx_def, batch, max_len, dtype, device):
 # the stack: one dict per super-block
 # --------------------------------------------------------------------------
 
-def init_stack(gen, cfg, device):
-    return [{f"b{i}": init_subblock(gen, cfg, m, f, device)
+def init_stack(gen, cfg, device, cross=False):
+    return [{f"b{i}": init_subblock(gen, cfg, m, f, device, cross=cross)
              for i, (m, f) in enumerate(cfg.block_defs)}
             for _ in range(cfg.n_super)]
 
@@ -176,12 +216,14 @@ def _remat(fn, run_cfg):
 
 
 def apply_stack(stack_params, x, cfg, *, positions, causal=True, q_chunk=1024,
-                run_cfg=None, collect_cache=False, flash_fn=None, gmm_fn=None,
-                scan_fn=None, chunk_fn=None):
+                enc_out=None, cross=False, run_cfg=None, collect_cache=False,
+                flash_fn=None, gmm_fn=None, scan_fn=None, chunk_fn=None):
     """Run the super-blocks over x.  Returns (x, caches|None, aux): caches
     are one ``{"b<i>": seed}`` per super-block (``{"k","v"}`` for
-    attention, ``{"h","conv"}`` for Mamba, ``{"C","n","m","conv"}`` for
-    the mLSTM, ``{"c","n","h","m","conv"}`` for the sLSTM), aux is the
+    attention, ``{"c_kv","k_rope"}`` for MLA, ``{"self", "cross"}`` for a
+    decoder sub-block over ``enc_out``, ``{"h","conv"}`` for Mamba,
+    ``{"C","n","m","conv"}`` for the mLSTM, ``{"c","n","h","m","conv"}``
+    for the sLSTM), aux is the
     sum of the MoE layers' aux losses.  ``run_cfg.remat`` recomputes
     each super-block in the backward pass (see ``_remat``)."""
     for fn, what in ((scan_fn, "Mamba"), (chunk_fn, "mLSTM")):
@@ -194,8 +236,9 @@ def apply_stack(stack_params, x, cfg, *, positions, causal=True, q_chunk=1024,
         for i, (m, f) in enumerate(cfg.block_defs):
             x, seeds[f"b{i}"], a = apply_subblock(
                 layer_p[f"b{i}"], x, cfg, m, f, positions=positions,
-                causal=causal, q_chunk=q_chunk, flash_fn=flash_fn,
-                gmm_fn=gmm_fn, scan_fn=scan_fn, chunk_fn=chunk_fn)
+                causal=causal, q_chunk=q_chunk, enc_out=enc_out, cross=cross,
+                flash_fn=flash_fn, gmm_fn=gmm_fn, scan_fn=scan_fn,
+                chunk_fn=chunk_fn)
             aux = aux + a
         return x, (seeds if collect_cache else None), aux
 
@@ -222,8 +265,8 @@ def decode_stack(stack_params, x, caches, cfg, *, pos):
     return x, new_caches
 
 
-def init_stack_state(cfg, batch, max_len, dtype, device):
+def init_stack_state(cfg, batch, max_len, dtype, device, cross=False):
     return [{f"b{i}": init_subblock_state(cfg, i, batch, max_len, dtype,
-                                          device)
+                                          device, cross=cross)
              for i in range(len(cfg.block_defs))}
             for _ in range(cfg.n_super)]

@@ -29,7 +29,8 @@ from repro_torch.launch import serve, steps
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
-from repro_torch.models.convert import params_from_jax
+from repro_torch.models.convert import params_from_jax, params_to_jax
+from repro_torch.tree import flatten
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 F32 = torch.float32
@@ -70,7 +71,11 @@ def test_configs_are_the_jax_configs(arch, which):
     else:
         ours, theirs = get_reduced(arch), jax_get_reduced(arch)
     assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
-    full_vocab = {"xlstm-350m": 51200}.get(arch, 65536)
+    full_vocab = {"xlstm-350m": 51200, "qwen3-moe-30b-a3b": 153600,
+                  "minicpm3-4b": 73728, "internvl2-2b": 94208,
+                  "whisper-large-v3": 53248, "minitron-8b": 256000,
+                  "nemotron-4-15b": 256000,
+                  "kimi-k2-1t-a32b": 163840}.get(arch, 65536)
     assert ours.padded_vocab() == theirs.padded_vocab() == \
         (full_vocab if which == "full" else 2048)
     assert ours.n_super == theirs.n_super
@@ -131,6 +136,39 @@ def test_inits_draw_the_jax_distributions():
                                                        rel=0.02)
     assert float(moe["wo"].abs().max()) <= 2 / np.sqrt(64) * (1 + 1e-6)
     assert float(moe["router"].abs().max()) <= 2 / np.sqrt(256) * (1 + 1e-6)
+    # MLA's seven matrices and cross-attention draw dense_init (fan-in
+    # from shape[0], wo from H * v_head_dim), qk-norm scales are ones,
+    # the learned position table draws embed_init
+    from repro_torch.configs import MLAConfig
+    from repro_torch.models.attention import init_attention
+    from repro_torch.models.mla import init_mla
+    mla = init_mla(gen, 256, 8, MLAConfig(
+        q_lora_rank=192, kv_lora_rank=128, qk_nope_head_dim=32,
+        qk_rope_head_dim=16, v_head_dim=32), "cpu")
+    for name, fan_in in (("w_dq", 256), ("w_uq", 192), ("w_dkv", 256),
+                         ("w_kr", 256), ("w_uk", 128), ("w_uv", 128),
+                         ("wo", 8 * 32)):
+        w = mla[name]
+        assert float(w.abs().max()) <= 2 / np.sqrt(fan_in) * (1 + 1e-6)
+        assert float(w.std()) == pytest.approx(0.8796 / np.sqrt(fan_in),
+                                               rel=0.05), name
+    for name in ("q_norm", "kv_norm"):
+        assert torch.equal(mla[name]["scale"], torch.ones_like(
+            mla[name]["scale"]))
+    qk = init_attention(gen, 256, 8, 4, 32, "cpu", qk_norm=True)
+    for name in ("q_norm", "k_norm"):
+        assert qk[name].dtype == F32 and torch.equal(qk[name],
+                                                     torch.ones(32))
+    assert float(qk["wq"].std()) == pytest.approx(0.8796 / 16, rel=0.02)
+    cfg = get_reduced("whisper-large-v3")
+    p = M.init_params(cfg, 0, device="cpu")
+    assert p["pos"]["table"].shape == (4096, 64)
+    assert float(p["pos"]["table"].std()) == pytest.approx(0.02, rel=0.05)
+    cross = p["stack"][0]["b0"]["cross"]
+    assert float(cross["wq"].abs().max()) <= 2 / 8 * (1 + 1e-6)
+    assert float(cross["wq"].std()) == pytest.approx(0.8796 / 8, rel=0.05)
+    assert torch.equal(p["stack"][0]["b0"]["norm_cross"]["scale"],
+                       torch.ones(64))
 
 
 def test_rope():
@@ -345,16 +383,27 @@ def test_serve_main_on_cpu(capsys):
 @pytest.mark.parametrize("part,item", [
     ("qk_norm", "A8"), ("mla", "A9"), ("minitron-8b", None)])
 def test_unported_families_raise(part, item):
-    """Mamba, MoE (tests/test_torch_hybrid.py) and the xLSTM mixers
-    (tests/test_torch_xlstm.py) run now; qwen3's qk-norm and MLA still
-    raise, naming their ROADMAP items, and an architecture outside the
-    registry is unknown."""
-    cfg = get_reduced("yi-9b")
+    """Every family of the JAX package runs in the port: qwen3's qk-norm
+    (ROADMAP A8) and MLA (A9) build the JAX package's key set, and
+    minitron-8b is in the registry, while a name outside it raises
+    KeyError."""
     if item is None:
+        assert dataclasses.asdict(get_config(part)) == \
+            dataclasses.asdict(jax_get_config(part))
         with pytest.raises(KeyError):
-            get_config(part)
+            get_config(part + "-unknown")
         return
     bad = {"qk_norm": dict(qk_norm=True),
-           "mla": dict(attention_type="mla")}[part]
-    with pytest.raises(NotImplementedError, match=item):
-        M.init_params(dataclasses.replace(cfg, **bad), 0, device="cpu")
+           "mla": dict(attention_type="mla",
+                       mla=get_reduced("minicpm3-4b").mla)}[part]
+    cfg = dataclasses.replace(get_reduced("yi-9b"), **bad)
+    jcfg = dataclasses.replace(jax_get_reduced("yi-9b"), **bad)
+    jp = jax.eval_shape(lambda: jm.init_params(jcfg, jax.random.PRNGKey(0)))
+    want = {"/".join(str(k.key) for k in path): tuple(leaf.shape)
+            for path, leaf in jax.tree_util.tree_flatten_with_path(jp)[0]}
+    got = {"/".join(map(str, path)): tuple(leaf.shape) for path, leaf in
+           flatten(params_to_jax(M.init_params(cfg, 0, device="cpu")))}
+    assert got == want
+    leaf = {"qk_norm": "stack/b0/mixer/q_norm",
+            "mla": "stack/b0/mixer/w_uk"}[part]
+    assert leaf in got

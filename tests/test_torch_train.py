@@ -193,12 +193,28 @@ def test_make_batch_is_a_function_of_seed_and_step():
     assert abs(np.mean(toks < cfg.vocab_size // 8) - 0.5) < 0.02
 
 
-def test_make_batch_raises_on_unported_inputs():
-    from repro_torch.configs.base import EncoderConfig
-    cfg = replace(get_reduced("yi-9b"), encoder=EncoderConfig(
-        num_layers=1, n_frames=4))
-    with pytest.raises(NotImplementedError, match="A12"):
-        make_batch(cfg, REDUCED_SHAPE, 0, device="cpu")
+def test_make_batch_raises_on_unported_inputs(J):
+    """The stub frontends' inputs: ``enc_embeds`` (whisper) and
+    ``patch_embeds`` (internvl2, whose tokens are seq_len less the
+    patches) of the JAX package's shapes and dtypes, 0.02 * N(0, 1),
+    a function of (seed, step)."""
+    for arch, key in (("whisper-large-v3", "enc_embeds"),
+                      ("internvl2-2b", "patch_embeds")):
+        cfg = get_reduced(arch)
+        want = J.make_batch(J.get_reduced(arch), J.Shape(
+            "smoke", REDUCED_SHAPE.seq_len, REDUCED_SHAPE.global_batch,
+            "train"), 0)
+        got = make_batch(cfg, REDUCED_SHAPE, 0, device="cpu")
+        assert set(got) == set(want) == {"tokens", "targets", key}
+        for name in got:
+            assert tuple(got[name].shape) == want[name].shape, name
+            assert str(got[name].dtype)[6:] == str(want[name].dtype), name
+        e = got[key]
+        assert float(e.std()) == pytest.approx(0.02, rel=0.1)
+        assert torch.equal(e, make_batch(cfg, REDUCED_SHAPE, 0,
+                                         device="cpu")[key])
+        assert not torch.equal(e, make_batch(cfg, REDUCED_SHAPE, 1,
+                                             device="cpu")[key])
 
 
 # -- rematerialisation -----------------------------------------------------
@@ -220,10 +236,10 @@ def test_remat_changes_no_value(arch):
 
 # -- the train step against the JAX package's --------------------------------
 
-def _jax_batches(J, jcfg, shape):
+def _jax_batches(J, jcfg, shape, n=STEPS):
     return [{k: np.asarray(v) for k, v in
              J.make_batch(jcfg, shape, s, seed=DATA_SEED).items()}
-            for s in range(STEPS)]
+            for s in range(n)]
 
 
 def _torch_batch(b, device="cpu"):
@@ -242,9 +258,9 @@ def _jax_init(J, arch):
     return _JAX_PARAMS[arch]
 
 
-def parity_run(J, arch, accum):
-    """10 steps of both packages' train steps from the same weights on
-    the same batches, with the port's step-0 gradients and the JAX
+def parity_run(J, arch, accum, n_steps=STEPS):
+    """``n_steps`` (10) steps of both packages' train steps from the same
+    weights on the same batches, with the port's step-0 gradients and the JAX
     step's, recovered from its first moment: after step 0, ``mu = (1 -
     beta1) * scale * g`` with ``scale = min(1, clip / (|g| + 1e-9))``
     from the step's own grad_norm (a few f32 roundings away from g)."""
@@ -254,7 +270,7 @@ def parity_run(J, arch, accum):
     shape = replace(REDUCED_SHAPE, grad_accum=accum)
     jrun = J.Run(model=jcfg, shape=jshape, compute_dtype="float32")
     run = RunConfig(model=cfg, shape=shape, compute_dtype="float32")
-    batches = _jax_batches(J, jcfg, jshape)
+    batches = _jax_batches(J, jcfg, jshape, n_steps)
     jp = _jax_init(J, arch)
     tp = params_from_jax(J.jax.tree.map(np.asarray, jp), cfg, device="cpu")
     _, tg = steps.make_value_and_grad(cfg, run)(tp, _torch_batch(batches[0]))
