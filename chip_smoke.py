@@ -166,7 +166,36 @@ Phases (any failure raises and exits non-zero with no result line):
              for whisper, 8 decode steps from its prefill's caches, each
              within 1e-3 of the next prefill's logits; ``[time]`` after
              each model;
- 21. report  a ``{"kernels": [...]}`` line (each entry with its route,
+ 21. distrib the distributed layer on a world of one NCCL rank (a
+             file:// store in a temporary directory, destroyed at the
+             phase's end): a) qwen3-moe-30b-a3b's MoE layer at full width
+             (d_model 2048, 128 experts top-8 of 768), B*S = 2 x 4096
+             tokens, capacity factor 2: apply_moe under use_mesh on a
+             (1, 1) ("data", "model") mesh (the expert-parallel path:
+             all-to-alls, local buffers, the "model" all-reduce) against
+             apply_moe outside it (the naive path), both through moe_gmm,
+             f32 and bf16 within 1e-5 / 1e-2 of max |y|, 3 moe_gmm launches
+             a call on each path (counts set to 0 before each call), no
+             drops on either (counted); the int8 dispatch's expert buffer
+             within its slot's max |x| / 254 (plus f32 rounding) of the f32
+             path's; ms a call;
+             b) compressed_tree_psum_mean over a 1.229 B-element f32 tree
+             (phase 16's yi-9b, 4 layers), two steps with error feedback:
+             means equal dequantize(quantize(x + r)), residuals within
+             scale / 2; wire bytes; c) ElasticRunner with
+             make_mesh_train_step on make_elastic_mesh(1, pod_shape=(1,
+             1)), phase 16's yi-9b f32 B=2: ensure(1), 3 steps,
+             ensure(1, force=True) (14.75 GB drained to the host and
+             re-sharded), 3 steps, handle_preemption through the
+             Checkpointer; against an uninterrupted run of make_train_step
+             (the runner freed first): losses and parameters within 1e-6,
+             bitwise equality reported; rebuild seconds, s a step, peak
+             memory; d) drive_pool over tests/data/outage_burst.instances.
+             jsonl.gz (PodPool(max_pods=128), SimulatedElasticRunner at
+             c)'s forced rebuild seconds and at 45 s, with and without
+             notices): a ``[elastic] {...}`` line with the card's name and
+             power limit;
+ 22. report  a ``{"kernels": [...]}`` line (each entry with its route,
              "cuda", and "cuda_route", the kernel's route on the main path:
              "wgmma" or "simt"; flash attention and moe_gmm have one entry
              per route, the simt one, "flash_attention.simt",
@@ -185,6 +214,7 @@ Exits 2 without a card or without the repository's ``src/`` beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -296,6 +326,27 @@ def time_ms(fn, iters: int = 200, warmup: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+@contextlib.contextmanager
+def counting_drops(dropped: list):
+    """Appends, for every capacity stage an MoE call places its slots
+    in (``moe._positions``: the naive path's buffers, the sharded path's
+    send buckets and local buffers), the number of valid slots that did
+    not fit."""
+    from repro_torch.models import moe as moe_mod
+    positions = moe_mod._positions
+
+    def counting(ids, n, cap, valid=None):
+        pos, keep = positions(ids, n, cap, valid)
+        fit = keep if valid is None else keep | ~valid
+        dropped.append(int((~fit).sum()))
+        return pos, keep
+    moe_mod._positions = counting
+    try:
+        yield dropped
+    finally:
+        moe_mod._positions = positions
 
 
 def profiled(fn, cpu: bool = True):
@@ -949,7 +1000,6 @@ def serve_phase(params, cfg, dev, tag: str = "serve") -> None:
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import BatchServer, Request
     from repro_torch.models import decode_step, init_cache, prefill
-    from repro_torch.models import moe as moe_mod
 
     rng = np.random.default_rng(0)              # as launch/serve.py draws
     server = BatchServer(cfg, slots=4, max_len=128, params=params,
@@ -1002,23 +1052,15 @@ def serve_phase(params, cfg, dev, tag: str = "serve") -> None:
 
     prompt = torch.from_numpy(
         rng.integers(0, cfg.vocab_size, (1, 8)).astype(np.int32)).to(dev)
-    route, dropped = moe_mod._route, []
-
-    def counting_route(*args, **kw):
-        out = route(*args, **kw)
-        dropped.append(int((~out[-1]).sum()))        # keep = pos < C
-        return out
+    dropped = []
     batch = {"tokens": prompt}
     if cfg.is_encdec:                  # the frames the prefill encodes
         batch["enc_embeds"] = 0.02 * torch.randn(
             (1, cfg.encoder.n_frames, cfg.d_model), device=dev,
             generator=torch.Generator(device=dev).manual_seed(5))
-    moe_mod._route = counting_route
-    try:
+    with counting_drops(dropped):
         pre, pre_caches = prefill(params, cfg, batch,
                                   compute_dtype=torch.float32)
-    finally:
-        moe_mod._route = route
     n_moe = cfg.n_super * sum(f == "moe" for _, f in cfg.block_defs)
     if len(dropped) != n_moe or any(dropped):
         fail(f"{tag}: the prefill's MoE layers dropped {dropped} tokens "
@@ -1987,6 +2029,379 @@ def zoo_phases(dev, t_start: float) -> dict:
     return out
 
 
+# -- phase 21: the distributed layer -------------------------------------------
+
+# a) qwen3-moe-30b-a3b's MoE layer at full width, B*S = 2 x 4096 tokens, at
+# the config's capacity factor of 1.25: 640 slots an expert (local capacity
+# factor 1: the sharded path's expert buffers are the naive path's), the
+# shape gmm cases qwen3-up-c640 / qwen3-down-c640 hold against the plain
+# version; the busiest expert takes ~590 of them from these inputs, so
+# neither path drops (counted)
+MOE_TOKENS = (2, 4096)
+# c) the elastic runner: steps before and after the forced rebuild
+ELASTIC_STEPS = 3
+TRACE = "tests/data/outage_burst.instances.jsonl.gz"
+
+
+def sharded_moe_check(dev) -> dict:
+    """a) ``apply_moe`` under ``use_mesh`` on a (1, 1) ("data", "model")
+    mesh (the sharded path: all-to-alls, local buffers, the "model"
+    all-reduce) and ``apply_moe`` outside it (the naive path), both
+    through the moe_gmm kernel, against ``apply_moe`` with no ``gmm_fn``
+    (the naive path's einsums: the plain version), f32 and bf16: max
+    |err| / max |plain| within 1e-5 / 1e-2 for each path, and sharded vs
+    naive within the same; 3 moe_gmm launches a call on each kernel
+    path, none on the plain one; no drops on any (counted); the int8
+    dispatch against the f32 sharded path: every element of the expert
+    buffer within half its slot's scale, max |x| / 254 (the int8 wire's
+    bound), plus f32 rounding; ms per call of each."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import moe_sharded as ms
+    from repro_torch.sharding_ctx import make_mesh, use_mesh
+
+    cfg = replace(get_config("qwen3-moe-30b-a3b"), num_layers=1)
+    cf = cfg.moe.capacity_factor
+    p = init_params(cfg, 2021, device=dev)["stack"][0]["b0"]["ffn"]
+    torch.cuda.empty_cache()
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    x32 = torch.randn(MOE_TOKENS + (cfg.d_model,), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(5))
+    n_tok = math.prod(MOE_TOKENS)
+    slots = moe_mod.capacity(n_tok, cfg.moe)
+    bufs = {}
+    expert_ffn = ms._expert_ffn
+
+    def capturing_ffn(pl, buf, ffn_type, gmm_fn):
+        bufs["last"] = buf.detach().clone()
+        return expert_ffn(pl, buf, ffn_type, gmm_fn)
+
+    def call(x, path, quant="none"):
+        """path: "plain" (naive, einsums), "naive" or "sharded" (moe_gmm)."""
+        moe = replace(cfg.moe, local_capacity_factor=1.0,
+                      dispatch_quant=quant)
+        gmm = None if path == "plain" else ops.moe_gmm
+        with torch.no_grad():
+            if path != "sharded":
+                return moe_mod.apply_moe(p, x, moe, cfg.ffn_type,
+                                         gmm_fn=gmm)[0]
+            with use_mesh(mesh):
+                return moe_mod.apply_moe(p, x, moe, cfg.ffn_type,
+                                         gmm_fn=gmm)[0]
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max())
+
+    out = {"capacity_factor": cf, "slots": slots, "tokens": n_tok}
+    paths = ("plain", "naive", "sharded")
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        x = x32.to(dtype)
+        ys, launches, drops = {}, {}, {}
+        for path in paths:
+            ops.reset_launches()
+            with counting_drops([]) as dropped:
+                ys[path] = call(x, path)
+                torch.cuda.synchronize()
+            launches[path] = ops.LAUNCHES["moe_gmm"]
+            # one capacity stage on the naive paths, two on the sharded
+            drops[path] = dropped
+        if launches != {"plain": 0, "naive": 3, "sharded": 3}:
+            fail(f"distributed moe {dtype}: moe_gmm launches {launches}, "
+                 "expected 3 a call on each kernel path, 0 on the plain one")
+        if [len(drops[k]) for k in paths] != [1, 1, 2] \
+                or any(sum(v) for v in drops.values()):
+            fail(f"distributed moe {dtype}: drops by stage {drops} at "
+                 f"capacity factor {cf} ({slots} slots an expert); the "
+                 "comparison needs none")
+        for path in paths:
+            if ys[path].shape != x.shape \
+                    or not torch.isfinite(ys[path]).all():
+                fail(f"distributed moe {dtype}: {path} output "
+                     f"{tuple(ys[path].shape)} not finite or shaped "
+                     f"{tuple(x.shape)}")
+        errs = {"naive vs plain": rel(ys["naive"], ys["plain"]),
+                "sharded vs plain": rel(ys["sharded"], ys["plain"]),
+                "sharded vs naive": rel(ys["sharded"], ys["naive"])}
+        if max(errs.values()) > tol:
+            fail(f"distributed moe {dtype}: {errs} of max |y| (tol {tol})")
+        out[str(dtype)] = {"errs": errs, "launches": launches}
+    ms._expert_ffn = capturing_ffn
+    try:
+        y32 = call(x32, "sharded")
+        buf32 = bufs["last"]
+        y8 = call(x32, "sharded", quant="int8")
+        buf8 = bufs["last"]
+    finally:
+        ms._expert_ffn = expert_ffn
+    # |err| <= scale / 2 with scale = max|x| / 127 + 1e-12, plus the f32
+    # roundings of x / scale and of q * scale (each <= 127 x 2**-24 of
+    # the scale)
+    scale = buf32.abs().amax(dim=-1, keepdim=True) / 127.0 + 1e-12
+    excess = float(((buf8 - buf32).abs() - scale * (0.5 + 1e-4)).max())
+    y8_err = rel(y8, y32)
+    if excess > 0 or not math.isfinite(y8_err):
+        fail(f"distributed moe int8: the dispatched buffer exceeds its int8 "
+             f"bound by {excess:.3g}; output err {y8_err:.3g}")
+    out["int8"] = {"buffer_excess": excess, "err": y8_err}
+    x16 = x32.to(torch.bfloat16)
+    for label, x, path, quant in (("plain f32", x32, "plain", "none"),
+                                  ("naive f32", x32, "naive", "none"),
+                                  ("sharded f32", x32, "sharded", "none"),
+                                  ("plain bf16", x16, "plain", "none"),
+                                  ("naive bf16", x16, "naive", "none"),
+                                  ("sharded bf16", x16, "sharded", "none"),
+                                  ("sharded int8", x32, "sharded", "int8")):
+        out[f"{label} ms"] = time_ms(lambda: call(x, path, quant),
+                                     iters=5, warmup=1)
+    # where a bf16 call's device time goes, on each kernel path
+    for label, path in (("naive bf16", "naive"), ("sharded bf16", "sharded")):
+        kern = profiled(lambda: call(x16, path), cpu=False)
+        if not kern:
+            log(f"[distributed] profile {label}: device time not measured: "
+                "the profiler trace holds no CUDA kernels")
+            continue
+        busy = sum(e.self_device_time_total for e in kern) / 1e3
+        out[f"{label} busy ms"] = busy
+        log(f"[distributed] profile {label}: device busy {busy:.2f} ms of a "
+            f"{out[label + ' ms']:.2f} ms call, "
+            f"{sum(e.count for e in kern)} kernel launches")
+        for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:6]:
+            log(f"[distributed]   {e.self_device_time_total / 1e3:8.2f} ms "
+                f"{e.count:4d}x  {e.key[:90]}")
+    f32, b16 = out[str(torch.float32)], out[str(torch.bfloat16)]
+    log(f"[distributed] moe: qwen3-moe-30b-a3b layer, {n_tok} tokens, "
+        f"capacity factor {cf} ({slots} slots an expert, no drops on any "
+        f"path); of max |y|, f32 (tol 1e-5) " + ", ".join(
+            f"{k} {v:.3g}" for k, v in f32["errs"].items())
+        + "; bf16 (tol 1e-2) " + ", ".join(
+            f"{k} {v:.3g}" for k, v in b16["errs"].items())
+        + f"; moe_gmm launches a call {f32['launches']}; int8 dispatch: "
+        f"buffer within its bound (excess {excess:.3g}), output "
+        f"{y8_err:.3g} of max |y|; ms a call: " + ", ".join(
+            f"{k[:-3]} {v:.3f}" for k, v in out.items()
+            if k.endswith(" ms") and "busy" not in k))
+    return out
+
+
+def compression_check(dev) -> dict:
+    """b) ``compressed_tree_psum_mean`` on one rank ("pod" of 1) over a
+    gradient-sized tree, phase 16's yi-9b parameters (TRAIN_LAYERS
+    deep, 1.229 B f32 elements), two steps with error feedback: each
+    mean equals dequantize(quantize(x + r)) exactly, each residual is
+    within scale / 2 (plus f32 rounding); ``wire_bytes``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.optim.compress import (compressed_tree_psum_mean,
+                                            dequantize_int8, quantize_int8,
+                                            wire_bytes)
+    from repro_torch.sharding_ctx import make_mesh
+    from repro_torch.tree import leaves
+
+    cfg = replace(get_config("yi-9b"), num_layers=TRAIN_LAYERS)
+    grads = init_params(cfg, 2021, device=dev)
+    group = make_mesh((1,), ("pod",), "cuda").get_group("pod")
+    n = sum(x.numel() for x in leaves(grads))
+    resid, secs, worst = None, [], 0.0
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        means, new_resid = compressed_tree_psum_mean(grads, group, resid)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        olds = leaves(resid) if resid is not None else [None] * len(means)
+        for x, r, m, nr in zip(leaves(grads), olds, leaves(means),
+                               leaves(new_resid)):
+            q, s = quantize_int8(x if r is None else x + r)
+            if not torch.equal(m, dequantize_int8(q, s)):
+                fail("distributed compress: a mean is not dequantize("
+                     "quantize(x + r))")
+            worst = max(worst, float(nr.abs().max() / s))
+        resid = new_resid
+        del means
+    if worst > 0.5 + 1e-4:
+        fail(f"distributed compress: a residual reaches {worst:.6f} of its "
+             "scale (bound 0.5)")
+    wb = {"int8": wire_bytes(grads, 2), "f32_ring": wire_bytes(grads, 2,
+                                                               False)}
+    log(f"[distributed] compress: {n / 1e9:.3f} B f32 elements, 2 steps "
+        f"with error feedback, {secs[0]:.3f} / {secs[1]:.3f} s a step; "
+        f"means exact, residual <= {worst:.6f} of the scale (bound 0.5); "
+        f"wire bytes a sync at 2 pods: int8 {wb['int8']:,}, f32 ring "
+        f"{wb['f32_ring']:,.0f}")
+    return {"elements": n, "step_s": secs, "worst_resid": worst,
+            "wire_bytes": wb}
+
+
+def elastic_runner_check(dev) -> dict:
+    """c) ``ElasticRunner`` with ``make_mesh_train_step`` on
+    ``make_elastic_mesh(1, pod_shape=(1, 1))``: phase 16's yi-9b (full
+    width, TRAIN_LAYERS deep, f32, B=2, S=4096, grad_accum 2, remat):
+    ensure(1), ELASTIC_STEPS steps, ensure(1, force=True) (the state
+    drained to the host and freed on the card, the DTensors re-sharded on
+    the pod count's mesh, the step rebuilt), as many
+    steps again; then handle_preemption through the port's Checkpointer.
+    Freed, and an uninterrupted run of ``make_train_step`` from the same
+    state on the same batches: losses and parameters within 1e-6,
+    bitwise equality reported; the peak device memory of the run and of
+    each ensure."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.core.elastic import ElasticRunner
+    from repro_torch.data import make_batch
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_mesh_train_step, make_train_step
+    from repro_torch.models import init_params, param_count
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import flatten, map_tree
+
+    cfg, shape, run = train.build("yi-9b", reduced=False, batch=2, seq=4096,
+                                  compute_dtype="float32", grad_accum=2)
+    cfg = replace(cfg, num_layers=TRAIN_LAYERS)
+    run = run.replace(model=cfg)
+    host_p = map_tree(lambda t: t.cpu(), init_params(cfg, 2021, device=dev))
+    host_o = adamw_init(host_p)
+    torch.cuda.empty_cache()
+    n_params = param_count(host_p)
+    steps = 2 * ELASTIC_STEPS
+    batches = [make_batch(cfg, shape, s, seed=2021, device=dev)
+               for s in range(steps)]
+    ckpt = ROOT / "build" / "elastic_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        runner = ElasticRunner(
+            lambda mesh: make_mesh_train_step(cfg, run, mesh), host_p,
+            host_o, pod_shape=(1, 1), checkpointer=Checkpointer(str(ckpt),
+                                                                keep=1),
+            device_type="cuda")
+        rebuild_s, rebuild_peak, peaks, losses, secs = [], [], [], [], []
+        for s in range(steps):
+            if s % ELASTIC_STEPS == 0:
+                # each ensure's own peak device memory, and the run's
+                peaks.append(torch.cuda.max_memory_allocated())
+                torch.cuda.reset_peak_memory_stats()
+                runner.ensure(1, force=s > 0)
+                rebuild_s.append(runner.rebuild_s)
+                rebuild_peak.append(torch.cuda.max_memory_allocated())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(runner.step(batches[s])["loss"]))
+            secs.append(time.perf_counter() - t0)
+        peak = max(peaks + [torch.cuda.max_memory_allocated()])
+        t0 = time.perf_counter()
+        runner.handle_preemption(steps)
+        preempt_s = time.perf_counter() - t0
+        ckpt_bytes = _dir_bytes(ckpt / f"step_{steps:010d}")
+        if runner.rebuilds != 2:
+            fail(f"distributed runner: {runner.rebuilds} rebuilds, not 2")
+        got = [t.full_tensor().cpu() for _, t in flatten(runner.params)]
+        del runner
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    p = map_tree(lambda t: t.to(dev), host_p)
+    o = map_tree(lambda t: t.to(dev), host_o)
+    step = make_train_step(cfg, run)
+    ref = []
+    for s in range(steps):
+        p, o, m = step(p, o, batches[s])
+        ref.append(float(m["loss"]))
+    want = [t.detach().cpu() for _, t in flatten(p)]
+    del p, o
+    torch.cuda.empty_cache()
+    loss_err = max(abs(a - b) for a, b in zip(losses, ref))
+    p_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    close = all(torch.allclose(a, b, rtol=1e-6, atol=1e-6)
+                for a, b in zip(got, want))
+    bitwise = losses == ref and all(torch.equal(a, b)
+                                    for a, b in zip(got, want))
+    if not (close and loss_err <= 1e-6 * max(abs(x) for x in ref)):
+        fail(f"distributed runner: losses {losses} vs uninterrupted {ref} "
+             f"({loss_err:.3g}), parameters max abs {p_err:.3g} (rtol = "
+             "atol = 1e-6)")
+    step_s = float(np.median(secs[1:]))
+    res = {"params": n_params, "losses": losses, "reference": ref,
+           "loss_err": loss_err, "param_err": p_err, "bitwise": bitwise,
+           "rebuild_s": rebuild_s, "step_s": secs, "median_step_s": step_s,
+           "peak_bytes": peak, "rebuild_peak_bytes": rebuild_peak,
+           "preemption_s": preempt_s,
+           "checkpoint_bytes": ckpt_bytes}
+    log(f"[distributed] runner: yi-9b {TRAIN_LAYERS}L full width f32 "
+        f"({n_params / 1e9:.3f} B params), B=2 S=4096 grad_accum 2 remat, "
+        f"make_mesh_train_step on a (1, 1) elastic mesh: rebuild_s ensure "
+        f"{rebuild_s[0]:.2f} s, forced {rebuild_s[1]:.2f} s (drain "
+        f"{_tree_gb(host_p, host_o):.2f} GB to the host, re-shard, step "
+        f"rebuilt); {step_s:.3f} s a step (median of {steps - 1}); losses "
+        f"{[round(x, 6) for x in losses]}, vs the uninterrupted run "
+        f"{loss_err:.3g}, parameters max abs {p_err:.3g} (rtol = atol = "
+        f"1e-6), bitwise equal: {bitwise}; peak {peak / 2 ** 30:.1f} GiB "
+        f"(during the ensures {rebuild_peak[0] / 2 ** 30:.2f} / "
+        f"{rebuild_peak[1] / 2 ** 30:.2f} GiB); "
+        f"handle_preemption {preempt_s:.2f} s ({ckpt_bytes / 1e9:.2f} GB)")
+    return res
+
+
+def _tree_gb(*trees) -> float:
+    from repro_torch.tree import leaves
+    return sum(nbytes(*leaves(t)) for t in trees) / 1e9
+
+
+def goodput_study(rebuild_s: float, smi: str) -> dict:
+    """d) ``drive_pool`` over the outage campaign's instance trace
+    (TRACE, read by the port's ``CampaignTrace.from_jsonl``) into
+    ``PodPool(max_pods=128)`` and ``SimulatedElasticRunner``: at c)'s
+    measured forced-rebuild seconds and at 45 s, with and without
+    preemption notices; a ``[elastic] {...}`` line."""
+    import gzip
+
+    from repro_torch.core.elastic import (PodPool, SimulatedElasticRunner,
+                                          drive_pool)
+    from repro_torch.core.events import CampaignTrace
+
+    with gzip.open(ROOT / TRACE, "rt") as f:
+        trace = CampaignTrace.from_jsonl(f.read())
+    reports = []
+    for cost in (rebuild_s, 45.0):
+        for notice in (True, False):
+            rep = drive_pool(trace, PodPool(max_pods=128),
+                             SimulatedElasticRunner(rebuild_s=cost),
+                             notice=notice)
+            if not (0.0 < rep.goodput_fraction <= 1.0 and rep.rebuilds > 0
+                    and (rep.steps_lost == 0.0) == notice):
+                fail(f"elastic: report {rep.to_dict()} at rebuild_s {cost}, "
+                     f"notice {notice}")
+            reports.append({"rebuild_s": cost, "notice": notice,
+                            **rep.to_dict()})
+    out = {"card": smi, "trace": trace.name, "seed": trace.seed,
+           "events": len(trace), "reports": reports}
+    log("[elastic] " + json.dumps(out))
+    return out
+
+
+def distributed_phase(dev, smi: str) -> dict:
+    """Phase 21: a world of one NCCL rank (a file:// store in a temporary
+    directory), destroyed at the phase's end; a) - c) on it, then d)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            out = {"moe": sharded_moe_check(dev),
+                   "compress": compression_check(dev),
+                   "runner": elastic_runner_check(dev)}
+        finally:
+            dist.destroy_process_group()
+    out["goodput"] = goodput_study(out["runner"]["rebuild_s"][1], smi)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to PyTorch",
@@ -2097,6 +2512,8 @@ def main() -> int:
     log("[train] " + json.dumps(trained))
     log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
     zoo_phases(dev, t_start)
+    distributed_phase(dev, smi)
+    log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
 
     # the main path's own shapes: the bf16 forwards' (B=2: yi-9b's
     # attention, jamba's up product and scan) on the wgmma routes, the f32

@@ -14,7 +14,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import model as M
 from repro_torch.optim import adamw_update, cosine_schedule
-from repro_torch.tree import leaves, unflatten
+from repro_torch.tree import leaves, map_tree, unflatten
 
 
 def _dtype(run: RunConfig) -> torch.dtype:
@@ -100,6 +100,107 @@ def make_train_step(cfg: ModelConfig, run: RunConfig):
             beta2=run.beta2, weight_decay=run.weight_decay,
             grad_clip=run.grad_clip)
         return new_params, new_opt, {"loss": loss, **om}
+
+    return train_step
+
+
+def _local_shard(full, mesh, placements):
+    """The piece of ``full`` that this rank's DTensor holds under
+    ``placements`` (even splits, nested in mesh-dim order)."""
+    for size, c, pl in zip(mesh.mesh.shape, mesh.get_coordinate(),
+                           placements):
+        if pl.is_shard():
+            full = full.chunk(size, dim=pl.dim)[c]
+    return full
+
+
+def make_mesh_train_step(cfg: ModelConfig, run: RunConfig, mesh):
+    """``step(params, opt_state, batch)`` on trees of DTensors placed by
+    ``sharding.param_shardings`` / ``opt_shardings`` on ``mesh``: the
+    counterpart of the JAX package's ``jax.jit(make_train_step,
+    in_shardings=..., out_shardings=...)``, whose compute GSPMD
+    partitions.  The port's model does not run on DTensors, so this
+    step stores the state sharded and computes data-parallel:
+
+      1. gathers the full parameters and optimizer state;
+      2. runs ``make_value_and_grad`` on the rank's rows of the global
+         batch, split over the ("pod", "data") axes as
+         ``sharding.batch_shardings`` splits it (a batch those axes
+         cannot divide is computed whole on every rank, as the JAX rule
+         replicates it);
+      3. averages the gradients and the loss over those axes;
+      4. applies ``adamw_update`` to the full state;
+      5. writes each rank's shard back into the DTensors' local tensors,
+         in place.
+
+    On a mesh of one rank the full state is the DTensors' own storage:
+    the plain step with no copy.  The result equals ``make_train_step``
+    on the global batch within f32 rounding for a loss that is a mean
+    over equal-sized shards (a dense model's).  An MoE layer computes
+    its capacity and aux loss on the rank's shard (the naive dispatch:
+    the step does not enter ``use_mesh``), so an MoE model's loss is not
+    exactly the global one across ranks."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import sharding as sh
+    from repro_torch.sharding_ctx import axis_names, mesh_shape
+    from repro_torch.tree import flatten
+
+    value_and_grad = make_value_and_grad(cfg, run)
+    shape = mesh_shape(mesh)
+    coord = dict(zip(axis_names(mesh), mesh.get_coordinate()))
+    axes = sh.batch_axes(mesh)
+    groups = [mesh.get_group(a) for a in axes if shape[a] > 1]
+    n, idx = 1, 0
+    for a in axes:                     # row-major over ("pod", "data")
+        n, idx = n * shape[a], idx * shape[a] + coord[a]
+
+    def full(t):
+        if not isinstance(t, DTensor):
+            return t
+        if all(pl.is_replicate() for pl in t.placements) \
+                or mesh.size() == 1:
+            return t.to_local()
+        return t.full_tensor()
+
+    def local_rows(batch):
+        specs = sh.batch_shardings(batch, mesh)
+        tokens = specs["tokens"].spec
+        if not tokens or tokens[0] is None:
+            return batch, False
+        rows = batch["tokens"].shape[0] // n
+        return {k: v[idx * rows:(idx + 1) * rows] for k, v in batch.items()}, \
+            True
+
+    def mean(t):
+        for g in groups:
+            dist.all_reduce(t, group=g)
+        return t.div_(n)
+
+    def train_step(params, opt_state, batch):
+        full_p = map_tree(full, params)
+        full_o = map_tree(full, opt_state)
+        lr = cosine_schedule(full_o["step"], base_lr=run.learning_rate)
+        mb, sharded = local_rows(batch)
+        loss, grads = value_and_grad(full_p, mb)
+        if sharded and groups:
+            loss = mean(loss.clone())
+            for g in leaves(grads):
+                mean(g)
+        _, new_o, om = adamw_update(
+            grads, full_o, full_p, lr=lr, beta1=run.beta1, beta2=run.beta2,
+            weight_decay=run.weight_decay, grad_clip=run.grad_clip)
+        with torch.no_grad():
+            for tree, new in ((params, full_p), (opt_state, new_o)):
+                for (_, d), (_, f) in zip(flatten(tree), flatten(new)):
+                    if not isinstance(d, DTensor):
+                        continue
+                    local = d.to_local()
+                    if local.data_ptr() != f.data_ptr() \
+                            or local.shape != f.shape:
+                        local.copy_(_local_shard(f, mesh, d.placements))
+        return params, opt_state, {"loss": loss, **om}
 
     return train_step
 

@@ -1,11 +1,13 @@
 """Token-choice top-k MoE with capacity-bounded scatter dispatch.
 
-The port of the JAX package's ``models/moe.py`` on its single-device
-path (``_apply_moe_naive``, which the JAX package takes with no mesh):
+The port of the JAX package's ``models/moe.py``.  On its single-device
+path (``_apply_moe_naive``, which the JAX package takes with no mesh)
 tokens are scattered into an (E, C, D) capacity buffer, the expert FFNs
 run as three grouped products over the expert axis, and the outputs
-gather back weighted by the renormalized router probabilities.  The
-sharded all-to-all dispatch is not ported (ROADMAP A14).
+gather back weighted by the renormalized router probabilities.  Under
+a mesh (``sharding_ctx.use_mesh``) that can hold the experts,
+``apply_moe`` takes the expert-parallel all-to-all dispatch of
+``moe_sharded.py`` instead, as the JAX package does.
 
 ``_expert_ffn`` takes the grouped product through its ``gmm_fn`` hook
 (the CUDA ``moe_gmm`` kernel's wrapper on the model path); without it
@@ -66,8 +68,22 @@ def capacity(num_tokens, moe):
 
 
 def apply_moe(p, x, moe, ffn_type="swiglu", gmm_fn=None):
-    """x: (B,S,D) -> (y, aux_loss).  Token-choice top-k with capacity
-    drop, on the JAX package's single-device (naive) dispatch."""
+    """x: (B,S,D) -> (y, aux_loss). Token-choice top-k, capacity drop.
+
+    Dispatch impl auto-selects: the explicit expert-parallel all-to-all
+    when a compatible mesh is active (see moe_sharded.py; x is then this
+    rank's rows of the batch), else the naive scatter path below
+    (single-device runs, decode batches)."""
+    from repro_torch.models.moe_sharded import (apply_moe_sharded,
+                                                sharded_moe_available)
+    from repro_torch.sharding import batch_axes
+    from repro_torch.sharding_ctx import axis_size, current_mesh
+    mesh = current_mesh()
+    if mesh is not None and sharded_moe_available(
+            mesh, moe, x.shape[0] * x.shape[1] * axis_size(
+                mesh, batch_axes(mesh))):
+        y, aux = apply_moe_sharded(p, x, moe, ffn_type, mesh, gmm_fn=gmm_fn)
+        return y + _shared_expert(p, x, ffn_type), aux
     return _apply_moe_naive(p, x, moe, ffn_type, gmm_fn=gmm_fn)
 
 
@@ -85,20 +101,52 @@ def _shared_expert(p, x, ffn_type):
     return (h @ p["shared_wo"].to(dt)).reshape(B, S, D)
 
 
+def _router(p, xt, moe):
+    """Router of T tokens xt (T, D): (probs (T,E) f32, top_p (T,K)
+    renormalized, top_e (T,K))."""
+    logits = (xt @ p["router"].to(xt.dtype)).to(torch.float32)   # (T,E)
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = torch.topk(probs, moe.top_k, dim=-1)  # descending
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    return probs, top_p, top_e
+
+
+def _positions(ids, n, cap, valid=None):
+    """Position of each entry of ``ids`` (in [0, n)) among the earlier
+    ``valid`` entries with the same id: (pos, keep), keep = valid & (pos
+    < cap), pos 0 where an entry is not kept.  Every capacity stage
+    places its slots through it: the naive path's expert buffers, the
+    sharded path's send buckets and its local expert buffers."""
+    onehot = F.one_hot(ids, n)                                   # (N,n)
+    if valid is not None:
+        onehot = onehot * valid[:, None].to(onehot.dtype)
+    pos = torch.gather(onehot.cumsum(0) - 1, 1, ids[:, None])[:, 0]
+    keep = pos < cap
+    if valid is not None:
+        keep = keep & valid
+    return torch.where(keep, pos, torch.zeros_like(pos)), keep
+
+
 def _route(p, xt, moe, C):
     """Router of T tokens xt (T, D) into capacity C.  Returns (probs
     (T,E) f32, top_p (T,K) renormalized, top_e (T,K), eid (K*T,) and pos
-    (K*T,) in slot-major order, keep = pos < C)."""
-    E, K = moe.num_experts, moe.top_k
-    logits = (xt @ p["router"].to(xt.dtype)).to(torch.float32)   # (T,E)
-    probs = torch.softmax(logits, dim=-1)
-    top_p, top_e = torch.topk(probs, K, dim=-1)      # descending, as top_k
-    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
-    # position of each (token, slot) within its expert, slot-major order
+    (K*T,) in slot-major order, keep = pos < C, pos 0 where dropped)."""
+    probs, top_p, top_e = _router(p, xt, moe)
     eid = top_e.T.reshape(-1)                                    # (K*T,)
-    onehot = F.one_hot(eid, E)                                   # (KT,E)
-    pos = torch.gather(onehot.cumsum(0) - 1, 1, eid[:, None])[:, 0]
-    return probs, top_p, top_e, eid, pos, pos < C
+    pos, keep = _positions(eid, moe.num_experts, C)
+    return probs, top_p, top_e, eid, pos, keep
+
+
+def _aux_loss(probs, top_e, moe, mean=None):
+    """Switch-style load-balancing loss from the token and probability
+    fractions; ``mean`` turns this call's means over its tokens into
+    global ones (the sharded path's means over the batch axes)."""
+    E = moe.num_experts
+    frac_tokens = F.one_hot(top_e[:, 0], E).to(torch.float32).mean(0)
+    frac_probs = probs.mean(0)
+    if mean is not None:
+        frac_tokens, frac_probs = mean(frac_tokens), mean(frac_probs)
+    return E * torch.sum(frac_tokens * frac_probs) * moe.aux_loss_weight
 
 
 def _apply_moe_naive(p, x, moe, ffn_type="swiglu", gmm_fn=None):
@@ -109,8 +157,7 @@ def _apply_moe_naive(p, x, moe, ffn_type="swiglu", gmm_fn=None):
     C = capacity(T, moe)
 
     xt = x.reshape(T, D)
-    probs, top_p, top_e, eid, pos, keep = _route(p, xt, moe, C)
-    slot = torch.where(keep, pos, torch.zeros_like(pos))
+    probs, top_p, top_e, eid, slot, keep = _route(p, xt, moe, C)
 
     # dispatch: scatter tokens into (E, C, D).  A dropped token adds zeros
     # into slot 0 of its expert, and each kept (expert, slot) pair is
@@ -128,8 +175,4 @@ def _apply_moe_naive(p, x, moe, ffn_type="swiglu", gmm_fn=None):
     yt = (gath * w[:, None]).reshape(K, T, D).sum(0)
     y = yt.reshape(B, S, D) + _shared_expert(p, x, ffn_type)
 
-    # load-balancing aux loss (Switch-style)
-    frac_tokens = F.one_hot(top_e[:, 0], E).to(torch.float32).mean(0)
-    frac_probs = probs.mean(0)
-    aux = E * torch.sum(frac_tokens * frac_probs) * moe.aux_loss_weight
-    return y, aux
+    return y, _aux_loss(probs, top_e, moe)

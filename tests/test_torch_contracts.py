@@ -5,8 +5,8 @@ see (it scans only ``src/repro/``):
     test file imports JAX or the JAX package;
   * every op in the port's timeline registry has concrete
     ``TorchLaneOps`` members (the port's twin of rule REG001/REG002);
-  * the entry points (the sweep, the model, the server) run on the card
-    unless told otherwise;
+  * the entry points (the sweep, the model, the server, the meshes and
+    the elastic runner) run on the card unless told otherwise;
   * spec JSON crosses between the packages byte for byte, and both
     packages batch every spec by the same key.
 """
@@ -25,9 +25,11 @@ from repro_torch.core.sweep_result import _prepare
 from repro_torch.core.sweep_torch import TorchLaneOps
 
 ROOT = Path(__file__).resolve().parents[1]
-# the CUDA test file runs on the card's machine, which has no JAX
+# the CUDA test file runs on the card's machine, which has no JAX; the
+# gloo rank programs run in processes that import none
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_kernels_cuda.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_kernels_cuda.py",
+       ROOT / "tests" / "torch_dist_workers.py"]
 SPEC_FILES = sorted((ROOT / "tests" / "data").glob("*.spec.json"))
 
 
@@ -84,6 +86,30 @@ def test_entry_points_default_to_the_card(monkeypatch):
     assert init_params(cfg, 0, device="cpu")["embed"]["table"].device.type \
         == "cpu"
     assert serve.BatchServer(cfg, device="cpu").device.type == "cpu"
+    # the distributed layer: meshes and the elastic runner default to
+    # device_type="cuda"; with device_type="cpu" they still need the
+    # caller's process group, and never create one (gloo) on their own
+    import torch.distributed as dist
+    from repro_torch.core.elastic import ElasticRunner
+    from repro_torch.launch.mesh import (make_elastic_mesh, make_host_mesh,
+                                         make_production_mesh)
+    from repro_torch.sharding_ctx import make_mesh
+    for call in (lambda: make_elastic_mesh(1, pod_shape=(1, 1)),
+                 lambda: make_host_mesh(),
+                 lambda: make_production_mesh(),
+                 lambda: make_mesh((1, 1), ("data", "model")),
+                 lambda: ElasticRunner(lambda mesh: None, {}, {})):
+        with pytest.raises(RuntimeError, match="device_type='cpu'"):
+            call()
+    assert not dist.is_initialized()
+    for call in (lambda: make_elastic_mesh(1, pod_shape=(1, 1),
+                                           device_type="cpu"),
+                 lambda: make_host_mesh(device_type="cpu")):
+        with pytest.raises(RuntimeError, match="no process group"):
+            call()
+    assert not dist.is_initialized()
+    assert ElasticRunner(lambda mesh: None, {}, {},
+                         device_type="cpu").mesh is None
 
 
 def _all_specs():
