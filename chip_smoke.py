@@ -195,7 +195,22 @@ Phases (any failure raises and exits non-zero with no result line):
              c)'s forced rebuild seconds and at 45 s, with and without
              notices): a ``[elastic] {...}`` line with the card's name and
              power limit;
- 22. report  a ``{"kernels": [...]}`` line (each entry with its route,
+ 22. dryrun  the dry run against the card, each part in a subprocess
+             (``python3 chip_smoke.py --phase22 a|b OUT.json``): a) the
+             dry run (``repro_torch.launch.dryrun.dry_run``) of phase 16's
+             bf16 train cell (yi-9b full width, 4 of 48 layers, B=4,
+             S=4096, grad_accum 2, remat) on a mesh of one fake rank, fake
+             tensors on the card: argument, temp and peak bytes, dot
+             FLOPs, the roofline terms; b) the cell's real step on the
+             card (bf16 parameters, the f32 master; 3 steps): the dry
+             run's dot FLOPs equal FlopCounterMode's count of the real
+             step exactly, its peak lies within 15 % of
+             max_memory_allocated (the arguments included); the step
+             time, model and dot FLOPs over step s x 989.4 TFLOP/s; c)
+             ``python -m repro_torch.launch.dryrun --arch yi-9b --shape
+             decode_32k`` on the (16, 16) mesh of 256 fake ranks ends
+             ``[OK]``; its per-device bytes, FLOPs and collective bytes;
+ 23. report  a ``{"kernels": [...]}`` line (each entry with its route,
              "cuda", and "cuda_route", the kernel's route on the main path:
              "wgmma" or "simt"; flash attention and moe_gmm have one entry
              per route, the simt one, "flash_attention.simt",
@@ -217,6 +232,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -2402,6 +2418,148 @@ def distributed_phase(dev, smi: str) -> dict:
     return out
 
 
+# -- phase 22: the dry run against the card -----------------------------------
+
+PEAK_TOL = 0.15                # predicted against measured peak, relative
+DRYRUN_STEPS = 3               # real steps: one to warm up, two timed
+
+
+def dryrun_cell():
+    """Phase 16's bf16 train cell (c): yi-9b at full width, TRAIN_LAYERS
+    of 48 layers deep, B=4, S=4096, grad_accum 2, remat (``build`` sets
+    it for a full config), bf16 parameters with the f32 master."""
+    from repro_torch.launch import train
+    cfg, shape, run = train.build("yi-9b", reduced=False, batch=4,
+                                  seq=4096, compute_dtype="bfloat16",
+                                  grad_accum=2)
+    cfg = replace(cfg, num_layers=TRAIN_LAYERS)
+    return cfg, shape, run.replace(model=cfg)
+
+
+def dryrun_part(part: str, out: str, device: str = "cuda") -> int:
+    """One part of phase 22 in a process of its own (``python3
+    chip_smoke.py --phase22 a|b OUT.json``): a) the dry run of
+    ``dryrun_cell`` on a mesh of one fake rank, on ``device``; b) the same
+    cell's real step on the card: its FLOPs by ``FlopCounterMode``, the
+    step's peak by ``max_memory_allocated`` (the step's arguments
+    included, as the dry run's peak includes them) and the step time."""
+    sys.path.insert(0, str(ROOT / "src"))
+    cfg, shape, run = dryrun_cell()
+    if part == "a":
+        from repro_torch.launch.dryrun import dry_run
+        res = dry_run(cfg, shape, run, (1, 1), device)
+    else:
+        from torch.utils.flop_counter import FlopCounterMode
+
+        from repro_torch.analysis.roofline import model_flops
+        from repro_torch.data import make_batch
+        from repro_torch.launch.steps import make_train_step
+        from repro_torch.models import init_params
+        from repro_torch.optim import adamw_init
+        from repro_torch.tree import map_tree
+
+        dev = torch.device("cuda")
+        params = map_tree(lambda x: x.to(torch.bfloat16),
+                          init_params(cfg, 2021, device=dev))
+        opt, step = adamw_init(params), make_train_step(cfg, run)
+        secs, peaks = [], []
+        for s in range(DRYRUN_STEPS):
+            batch = make_batch(cfg, shape, s, seed=7, device=dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            float(m["loss"])
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            peaks.append(torch.cuda.max_memory_allocated())
+        batch = make_batch(cfg, shape, DRYRUN_STEPS, seed=7, device=dev)
+        with FlopCounterMode(display=False) as fc:
+            step(params, opt, batch)
+        torch.cuda.synchronize()
+        res = {"dot_flops": int(fc.get_total_flops()),
+               "peak_bytes": max(peaks[1:]), "peaks": peaks,
+               "step_s": secs, "model_flops": model_flops(cfg, shape)}
+    Path(out).write_text(json.dumps(res))
+    return 0
+
+
+def dryrun_phase(smi: str) -> dict:
+    """Phase 22, each part in a subprocess: a) the dry run of phase 16's
+    bf16 train cell on one fake rank; b) that cell's real step: the dry
+    run's dot FLOPs equal FlopCounterMode's count exactly, its peak lies
+    within PEAK_TOL of max_memory_allocated; c) ``python -m
+    repro_torch.launch.dryrun --arch yi-9b --shape decode_32k`` on the
+    (16, 16) mesh of 256 fake ranks ends [OK]."""
+    import tempfile
+
+    from repro_torch.analysis.roofline import PEAK_FLOPS
+
+    torch.cuda.empty_cache()           # the card to the subprocesses
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    got = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for part in ("a", "b"):
+            t0 = time.perf_counter()
+            path = Path(tmp) / f"{part}.json"
+            proc = subprocess.run(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--phase22",
+                 part, str(path)], cwd=ROOT, env=env, capture_output=True,
+                text=True, timeout=600)
+            if proc.returncode != 0:
+                fail(f"dryrun part {part} exited {proc.returncode}: "
+                     f"{proc.stderr[-3000:]}")
+            got[part] = json.loads(path.read_text())
+            got[part]["wall_s"] = time.perf_counter() - t0
+    a, b = got["a"], got["b"]
+    mem, rf = a["memory"], a["roofline"]
+    log(f"[dryrun] a) yi-9b {TRAIN_LAYERS} of 48 layers, bf16 B=4 S=4096 "
+        f"grad_accum 2 remat, mesh 1x1 of fake tensors on the card: "
+        f"argument {mem['argument_bytes'] / 1e9:.3f} GB, temp "
+        f"{mem['temp_bytes'] / 1e9:.3f} GB, peak "
+        f"{mem['peak_bytes'] / 1e9:.3f} GB, output "
+        f"{mem['output_bytes'] / 1e9:.3f} GB; dot FLOPs "
+        f"{a['counted']['dot_flops']:.6e}, model FLOPs "
+        f"{rf['model_flops']:.6e} (useful {rf['useful_ratio']:.4f}); "
+        f"roofline compute {rf['compute_s']:.4f} s, memory "
+        f"{rf['memory_s']:.4f} s, collective {rf['collective_s']:.4f} s "
+        f"({rf['bottleneck']}); traced in {a['trace_s']} s "
+        f"({a['wall_s']:.1f} s with the process)")
+    if a["counted"]["dot_flops"] != b["dot_flops"]:
+        fail(f"dryrun: the dry run's dot FLOPs {a['counted']['dot_flops']} "
+             f"!= FlopCounterMode's {b['dot_flops']} on the real step")
+    rel = mem["peak_bytes"] / b["peak_bytes"] - 1
+    if abs(rel) > PEAK_TOL:
+        fail(f"dryrun: predicted peak {mem['peak_bytes'] / 1e9:.3f} GB vs "
+             f"max_memory_allocated {b['peak_bytes'] / 1e9:.3f} GB "
+             f"({100 * rel:+.1f} %, tol {100 * PEAK_TOL:.0f} %)")
+    step_s = float(np.median(b["step_s"][1:]))
+    log(f"[dryrun] b) the real step on the card: dot FLOPs "
+        f"{b['dot_flops']:.6e} (FlopCounterMode; equal to the dry run's), "
+        f"peak {b['peak_bytes'] / 1e9:.3f} GB (max_memory_allocated of "
+        f"steps {[round(x / 1e9, 3) for x in b['peaks']]}; predicted "
+        f"{100 * rel:+.2f} %, tol {100 * PEAK_TOL:.0f} %); step s "
+        f"{[round(x, 4) for x in b['step_s']]}, median of the last "
+        f"{DRYRUN_STEPS - 1} {step_s:.4f} s; model FLOPs / (step s x "
+        f"{PEAK_FLOPS / 1e12:.1f} TFLOP/s) "
+        f"{b['model_flops'] / (step_s * PEAK_FLOPS):.4f}, dot FLOPs / (step "
+        f"s x {PEAK_FLOPS / 1e12:.1f} TFLOP/s) "
+        f"{b['dot_flops'] / (step_s * PEAK_FLOPS):.4f} | {smi}")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "yi-9b", "--shape", "decode_32k"], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    if proc.returncode != 0 or not lines or \
+            not lines[-1].startswith("[OK] yi-9b/decode_32k/16x16 "):
+        fail(f"dryrun c) exited {proc.returncode}: {lines[-3:]} "
+             f"{proc.stderr[-3000:]}")
+    log(f"[dryrun] c) {lines[-1]} ({time.perf_counter() - t0:.1f} s with "
+        f"the process)")
+    return {"a": a, "b": b, "c": lines[-1]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to PyTorch",
@@ -2514,6 +2672,8 @@ def main() -> int:
     zoo_phases(dev, t_start)
     distributed_phase(dev, smi)
     log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
+    dryrun_phase(smi)
+    log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
 
     # the main path's own shapes: the bf16 forwards' (B=2: yi-9b's
     # attention, jamba's up product and scan) on the wgmma routes, the f32
@@ -2588,4 +2748,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--phase22":
+        sys.exit(dryrun_part(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -1,4 +1,5 @@
-"""Architecture registry of the port: ``get_config`` / ``get_reduced``.
+"""Architecture registry of the port: ``get_config`` / ``get_reduced``,
+the shapes (``get_shape``) and the (arch x shape) ``cells``.
 
 The registry holds the JAX package's ten architectures, in its order;
 ``get_reduced`` shrinks a config exactly as the JAX package's
@@ -32,6 +33,23 @@ def get_config(arch: str) -> ModelConfig:
     if arch not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
     return ARCHS[arch]
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
+
+
+def cells(include_skipped: bool = True):
+    """All 40 (arch, shape) cells. Yields (arch_id, shape_name, skipped:bool).
+
+    long_500k is skipped for pure full-attention archs (sub-quadratic path
+    required); whisper decode shapes run (enc-dec has a decoder)."""
+    for a, cfg in ARCHS.items():
+        for s in SHAPES:
+            skip = (s == "long_500k" and not cfg.is_subquadratic)
+            if skip and not include_skipped:
+                continue
+            yield a, s, skip
 
 
 def get_reduced(arch: str) -> ModelConfig:

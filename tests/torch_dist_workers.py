@@ -13,6 +13,9 @@ CASE "moe": every case of ``moe_cases`` — ``apply_moe_sharded`` on the
 ``compressed_psum_mean`` over a ("pod",) mesh of 4 ranks for 3 steps.
 CASE "elastic": ``tests/test_system.py``'s 2 pods -> preemption -> 1 pod
 scenario through ``ElasticRunner`` and ``make_mesh_train_step``.
+CASE "steps": ``make_mesh_prefill_step`` and ``make_mesh_decode_step`` on
+both meshes against the plain steps on the global batch (each rank
+computes both; the largest gaps and the placements go to the npz).
 """
 import os
 import sys
@@ -35,6 +38,12 @@ D_MODEL = 16
 X_SHAPE = (4, 16, D_MODEL)       # global (B, S, D); B split over pod x data
 ELASTIC_BATCH = 4                # global batch of the elastic run
 ELASTIC_STEPS = 6                # steps before and after the preemption
+# the mesh prefill / decode steps: reduced archs with attention KV caches,
+# Mamba states (and MoE: a capacity factor no rank's rows overflow, so the
+# naive dispatch keeps every token on a rank as on the whole batch) and
+# mLSTM / sLSTM states
+STEP_ARCHS = ("yi-9b", "jamba-v0.1-52b", "xlstm-350m")
+STEP_BATCH, STEP_SEQ, DECODE_STEPS = 4, 16, 3
 
 
 def moe_cases():
@@ -187,6 +196,88 @@ def _elastic_rank(inp, out, work):
     out["rebuild_s"] = np.float64(runner.rebuild_s)
 
 
+def _steps_rank(out):
+    import dataclasses
+
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch import sharding as sh
+    from repro_torch.configs import RunConfig, ShapeConfig, get_reduced
+    from repro_torch.launch.steps import (make_decode_step,
+                                          make_mesh_decode_step,
+                                          make_mesh_prefill_step,
+                                          make_prefill_step)
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.sharding_ctx import make_mesh
+    from repro_torch.tree import flatten, map_tree
+
+    def gap(got, want):
+        """(max |got - want|, max |want|) over two trees; the padded
+        vocabulary's masked logits (-finfo.max in both) left out of the
+        scale."""
+        pairs = list(zip(flatten(got), flatten(want)))
+        assert [p for (p, _), _ in pairs] == [p for _, (p, _) in pairs]
+        return (max(float((a.full_tensor() - b).abs().max())
+                    for (_, a), (_, b) in pairs),
+                max(float(b.abs()[b.abs() < 1e30].max())
+                    for _, (_, b) in pairs))
+
+    def same_placements(tree, shardings):
+        return all(tuple(d.placements) == tuple(ns.placements)
+                   for (_, d), (_, ns) in zip(flatten(tree),
+                                              flatten(shardings)))
+
+    for mkey, (mshape, names) in MESHES.items():
+        mesh = make_mesh(mshape, names, "cpu")
+        for arch in STEP_ARCHS:
+            cfg = get_reduced(arch)
+            if cfg.moe is not None:
+                cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                    cfg.moe, capacity_factor=8.0))
+            shape = ShapeConfig("steps", STEP_SEQ, STEP_BATCH, "prefill")
+            run = RunConfig(model=cfg, shape=shape, compute_dtype="float32")
+            g = torch.Generator().manual_seed(7)
+            params = init_params(cfg, 0, device="cpu")
+            dparams = map_tree(
+                lambda t, ns: distribute_tensor(t, mesh, ns.placements),
+                params, sh.param_shardings(params, mesh))
+            tokens = torch.randint(0, cfg.vocab_size, (STEP_BATCH, STEP_SEQ),
+                                   generator=g, dtype=torch.int32)
+            key = f"{mkey}/{arch}"
+            with torch.no_grad():
+                want_l, want_c = make_prefill_step(cfg, run)(
+                    params, {"tokens": tokens})
+                got_l, got_c = make_mesh_prefill_step(cfg, run, mesh)(
+                    dparams, {"tokens": tokens})
+                out[f"{key}/prefill_logits"] = np.array(gap(got_l, want_l))
+                out[f"{key}/prefill_caches"] = np.array(gap(got_c, want_c))
+                out[f"{key}/prefill_placed"] = np.bool_(same_placements(
+                    got_c, sh.cache_shardings(got_c, mesh)))
+
+                caches = map_tree(
+                    lambda t: torch.randn(t.shape, generator=g).to(t.dtype),
+                    init_cache(cfg, STEP_BATCH, STEP_SEQ, torch.float32,
+                               device="cpu"))
+                csh = sh.cache_shardings(caches, mesh)
+                dcaches = map_tree(
+                    lambda t, ns: distribute_tensor(t, mesh, ns.placements),
+                    caches, csh)
+                plain = make_decode_step(cfg, run)
+                step = make_mesh_decode_step(cfg, run, mesh)
+                worst = (0.0, 0.0)
+                for i in range(DECODE_STEPS):
+                    tok = torch.randint(0, cfg.vocab_size, (STEP_BATCH, 1),
+                                        generator=g, dtype=torch.int32)
+                    want_l, caches = plain(params, caches, tok, 5 + i)
+                    got_l, dcaches = step(dparams, dcaches, tok, 5 + i)
+                    e = gap(got_l, want_l)
+                    worst = (max(worst[0], e[0]), max(worst[1], e[1]))
+                out[f"{key}/decode_logits"] = np.array(worst)
+                out[f"{key}/decode_caches"] = np.array(gap(dcaches, caches))
+                out[f"{key}/decode_placed"] = np.bool_(
+                    same_placements(dcaches, csh))
+
+
 def _rank(rank, case, inputs, out_dir):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{out_dir}/store",
@@ -196,6 +287,8 @@ def _rank(rank, case, inputs, out_dir):
         out = {}
         if case == "moe":
             _moe_rank(inp, out)
+        elif case == "steps":
+            _steps_rank(out)
         else:
             _elastic_rank(inp, out, out_dir)
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
