@@ -210,14 +210,57 @@ Phases (any failure raises and exits non-zero with no result line):
              ``python -m repro_torch.launch.dryrun --arch yi-9b --shape
              decode_32k`` on the (16, 16) mesh of 256 fake ranks ends
              ``[OK]``; its per-device bytes, FLOPs and collective bytes;
- 23. report  a ``{"kernels": [...]}`` line (each entry with its route,
+ 23. tp      the mesh steps computing the way the rules store the state:
+             a) one-rank: on a world of one NCCL rank (where a mesh step
+             is the plain step, so no tensor-parallel code runs),
+             ``Trainer(mesh=)`` on a (1, 1) mesh against ``Trainer()`` on phase 16's bf16 cell
+             (yi-9b, 4 of 48 layers, B=4, S=4096, grad_accum 2, remat),
+             3 steps: losses and parameters bitwise equal (one rank is
+             the plain step); ``make_mesh_prefill_step`` with
+             attention_impl="pallas", B=2 S=4096, in f32 against the
+             reference path (the logits' gap within 1e-4 of the
+             reference's 2-norm) and in bf16 bitwise equal to the plain
+             prefill step through the same kernels, on yi-9b's 4 layers
+             (flash 4 launches) and on qwen3-moe-30b-a3b's 8 layers
+             through ``moe_sharded`` (inside ``use_mesh``: 8 calls,
+             capacity factor 8: no drop, counted; flash 8 and moe_gmm 24
+             launches); b) in a
+             subprocess (``python3 chip_smoke.py --phase23 OUT.json``),
+             rank 0 of the (16, 16) mesh of torch's fake process group
+             (256 ranks: no data moves, so no value is compared) on real
+             bf16 shards of yi-9b train_4k at full width and depth (48
+             layers, 16 rows a rank, grad_accum 8, remat): a warm-up and
+             two timed steps, ``max_memory_allocated`` within 15 % of the
+             dry run's peak for the cell
+             (``artifacts/dryrun_torch/dryrun_yi-9b_train_4k_no.json``),
+             ``FlopCounterMode``'s dot FLOPs equal to the dry run's; s a
+             step and the rank's model FLOPs over s x 989.4 TFLOP/s;
+             then rank 0's ``make_mesh_prefill_step`` with
+             attention_impl="pallas" at full width and depth, B=32
+             S=4096 (2 rows a rank), on yi-9b (flash on the rank's 2 q
+             heads and the kv head they select: 48 launches) and on
+             qwen3-moe-30b-a3b (flash 48, ``moe_gmm`` on
+             ``moe_sharded``'s 8 local experts of F = 48: 144), the
+             counts set to 0 just before each and read just after, the
+             rank's vocabulary columns of the logits checked by shape
+             (the fake group's all-to-all returns the rank's own send
+             buffer, so that the dispatch's slot indices stay the
+             rank's).  Phase 6 gains the flash case at a rank's heads
+             (``yi-9b-tp16``: B=2, S=4096, H=2, Hkv=1, D=128), phase 9
+             the moe_gmm cases at a rank's experts (``qwen3-tp16-up`` /
+             ``-down``: E=8, C=12,800, D=2048, F=48 and back);
+ 24. report  a ``{"kernels": [...]}`` line (each entry with its route,
              "cuda", and "cuda_route", the kernel's route on the main path:
              "wgmma" or "simt"; flash attention and moe_gmm have one entry
              per route, the simt one, "flash_attention.simt",
              "moe_gmm.simt" and "mlstm_chunk.simt", at the f32 forwards'
              shapes and launches; the four per-op campaign kernels with
              their launches on the ops route, and "campaign_sweep", the
-             persistent kernel, with its time per sweep),
+             persistent kernel, with its time per sweep; flash
+             attention's and moe_gmm's entries add "mesh_launches", their
+             launches in phase 23 b)'s mesh prefills on rank 0 of
+             (16, 16), and "one_rank_mesh_launches", phase 23 a)'s on a
+             one-rank mesh, which is the plain step),
              the nvidia-smi line, and last
              ``{"ok": true, "device": {...}}``.
 
@@ -750,6 +793,9 @@ FLASH_CASES = [
      {"qk_norm": True}),
     ("internvl2", True, (2, 4096, 4096, 16, 8, 128, True), {}),
     ("whisper-dec", True, (2, 448, 448, 20, 20, 64, True), {}),
+    # a "model" rank's heads of yi-9b on the (16, 16) mesh (phase 23):
+    # 2 q heads reading 1 kv head
+    ("yi-9b-tp16", True, (2, 4096, 4096, 2, 1, 128, True), {}),
 ]
 
 
@@ -1113,7 +1159,13 @@ GMM_CASES = [("jamba-up-c1280", 16, 1280, 4096, 14336),
              # qwen3-moe-30b-a3b's at B*S = 8192 (phase 17): 128 experts
              # of C = 640, d_model 2048 -> F 768 and back
              ("qwen3-up-c640", 128, 640, 2048, 768),
-             ("qwen3-down-c640", 128, 640, 768, 2048)]
+             ("qwen3-down-c640", 128, 640, 768, 2048),
+             # a (16, 16) rank's local experts in phase 23 b)'s qwen3
+             # prefill (B*S = 2 x 4096 a rank): 128 / 16 = 8 experts of
+             # F = 768 / 16 = 48, 12,800 slots (moe_sharded's local
+             # capacity at factors 1.25 and 1.25)
+             ("qwen3-tp16-up", 8, 12800, 2048, 48),
+             ("qwen3-tp16-down", 8, 12800, 48, 2048)]
 # (label, B, S, di, N, stream dtypes xc / dt / bm / cm or None for all
 # in the case's dtype): jamba's mixers at B=2 bf16 and B=1 f32, and the
 # edge shapes of tests/test_kernels.py
@@ -2560,6 +2612,425 @@ def dryrun_phase(smi: str) -> dict:
     return {"a": a, "b": b, "c": lines[-1]}
 
 
+# -- phase 23: the mesh steps computing the way the rules store the state ----
+
+TP_STEPS = 3                   # trainer steps compared, one-rank mesh
+TP_LOGIT_TOL = 1e-4            # f32 prefill, kernels vs the reference path
+TP_ARTIFACT = "artifacts/dryrun_torch/dryrun_yi-9b_train_4k_no.json"
+
+
+def _one_rank_mesh():
+    from repro_torch.sharding_ctx import make_mesh
+    return make_mesh((1, 1), ("data", "model"), "cuda")
+
+
+def _wrap(params, mesh):
+    """DTensors of a one-rank mesh over ``params``' own storage."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import sharding as sh
+    from repro_torch.tree import map_tree
+    return map_tree(lambda t, ns: DTensor.from_local(
+        t, mesh, ns.placements, run_check=False),
+        params, sh.param_shardings(params, mesh))
+
+
+def tp_trainer_check(dev, smi: str) -> dict:
+    """a) ``Trainer(mesh=...)`` on a one-rank mesh against ``Trainer()``:
+    phase 16's bf16 cell (yi-9b at full width, TRAIN_LAYERS of 48
+    layers, B=4, S=4096, grad_accum 2, remat), TP_STEPS steps: losses and
+    every parameter bitwise equal (a mesh of one rank is the plain
+    step); s a step of each."""
+    from repro_torch.launch.train import Trainer
+
+    cfg, shape, run = dryrun_cell()
+    out = {}
+    t0 = time.perf_counter()
+    plain = Trainer(cfg, shape, run, device=dev)
+    t1 = time.perf_counter()
+    losses = plain.train(TP_STEPS, log_every=0)
+    torch.cuda.synchronize()
+    out["plain_s"] = (time.perf_counter() - t1) / TP_STEPS
+    want = plain.params
+    del plain
+    torch.cuda.empty_cache()
+    mesh = _one_rank_mesh()
+    tm = Trainer(cfg, shape, run, device=dev, mesh=mesh)
+    t1 = time.perf_counter()
+    got = tm.train(TP_STEPS, log_every=0)
+    torch.cuda.synchronize()
+    out["mesh_s"] = (time.perf_counter() - t1) / TP_STEPS
+    from repro_torch.tree import flatten
+    same = all(torch.equal(d.to_local(), w) for (_, d), (_, w)
+               in zip(flatten(tm.params), flatten(want)))
+    if got != losses or not same:
+        fail(f"tp a) Trainer(mesh=) on one rank differs from Trainer(): "
+             f"losses {got} vs {losses}, parameters equal {same}")
+    out.update(losses=losses, wall_s=time.perf_counter() - t0)
+    log(f"[tp] a) one-rank: Trainer(mesh=(1, 1)) vs Trainer(): yi-9b "
+        f"{TRAIN_LAYERS} of 48 layers, bf16 B=4 S=4096 grad_accum 2 remat, "
+        f"{TP_STEPS} steps: losses {[round(x, 6) for x in losses]} and "
+        f"every parameter bitwise equal; s a step {out['plain_s']:.4f} "
+        f"plain, {out['mesh_s']:.4f} mesh | {smi}")
+    del tm, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_prefill_check(dev, smi, arch, layers, expect) -> dict:
+    """a) ``make_mesh_prefill_step`` on a one-rank mesh, B=2 S=4096,
+    with ``attention_impl="pallas"`` (flash and moe_gmm): in f32 against
+    the reference path, the logits' gap within TP_LOGIT_TOL of the
+    reference's 2-norm; in bf16 equal to the plain prefill step through
+    the same kernels, bitwise (one rank is the plain step), its gap to
+    the bf16 reference path reported; the launches ``expect`` on each
+    kernels' step (counts set to 0 just before it) and none on the
+    reference's; an MoE model's layers through ``moe_sharded`` (calls
+    counted; the step runs inside ``use_mesh``, as a one-rank mesh step
+    is the plain step), capacity factor 8 so that no token drops
+    (counted)."""
+    from repro_torch.configs import RunConfig, ShapeConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import (make_mesh_prefill_step,
+                                          make_prefill_step)
+    from repro_torch.models import init_params
+    from repro_torch.models import moe_sharded as ms
+    from repro_torch.sharding_ctx import use_mesh
+
+    cfg = replace(get_config(arch), num_layers=layers)
+    if cfg.moe is not None:
+        cfg = replace(cfg, moe=replace(cfg.moe, capacity_factor=8.0))
+    shape = ShapeConfig("tp", 4096, 2, "prefill")
+    mesh = _one_rank_mesh()
+    plain_params = init_params(cfg, 2021, device=dev)
+    params = _wrap(plain_params, mesh)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    tok = torch.randint(0, cfg.vocab_size, (2, 4096), generator=gen,
+                        device=dev, dtype=torch.int32)
+    calls, dropped = [0], []
+    sharded = ms.apply_moe_sharded
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return sharded(*a, **k)
+    got = {}
+    ms.apply_moe_sharded = counted
+    try:
+        with counting_drops(dropped), torch.no_grad():
+            for dt in ("float32", "bfloat16"):
+                for impl in ("pallas", "reference", "plain"):
+                    run = RunConfig(model=cfg, shape=shape, compute_dtype=dt,
+                                    attention_impl="reference"
+                                    if impl == "reference" else "pallas")
+                    torch.cuda.synchronize()
+                    ops.reset_launches()
+                    calls[0] = 0
+                    t0 = time.perf_counter()
+                    # a one-rank mesh step is the plain step: the MoE
+                    # takes the expert-parallel dispatch inside the
+                    # caller's use_mesh, as from the plain step
+                    with use_mesh(mesh):
+                        if impl == "plain":
+                            logits, _ = make_prefill_step(cfg, run)(
+                                plain_params, {"tokens": tok})
+                        else:
+                            logits, _ = make_mesh_prefill_step(
+                                cfg, run, mesh)(params, {"tokens": tok})
+                            logits = logits.to_local()
+                    torch.cuda.synchronize()
+                    got[dt, impl] = (logits[..., :cfg.vocab_size].float(),
+                                     time.perf_counter() - t0,
+                                     {k: ops.LAUNCHES[k] for k in expect},
+                                     calls[0])
+    finally:
+        ms.apply_moe_sharded = sharded
+
+    def gap(a, b):
+        return float(torch.linalg.vector_norm(a - b)
+                     / torch.linalg.vector_norm(b))
+    want_calls = sum(f == "moe" for _, f in cfg.block_defs) * cfg.n_super
+    res = {}
+    for dt in ("float32", "bfloat16"):
+        (lk, sk, nk, ck), (lr, sr, nr, cr), (lp, _, np_, _) = (
+            got[dt, impl] for impl in ("pallas", "reference", "plain"))
+        rel, same = gap(lk, lr), bool(torch.equal(lk, lp))
+        ok = nk == expect and np_ == expect and not any(nr.values()) \
+            and ck == want_calls and cr == want_calls and not sum(dropped)
+        ok = ok and (same if dt == "bfloat16" else
+                     math.isfinite(rel) and rel <= TP_LOGIT_TOL)
+        if not ok:
+            fail(f"tp a) {arch} mesh prefill {dt}: kernels vs reference "
+                 f"{rel:.3e} (f32 tol {TP_LOGIT_TOL}), equal to the plain "
+                 f"step {same}, launches {nk} / {np_} (want {expect}) / "
+                 f"{nr} (want none), moe_sharded calls {ck} / {cr} (want "
+                 f"{want_calls}), drops {sum(dropped)}")
+        log(f"[tp] a) one-rank: {arch} {layers} layers, "
+            f"make_mesh_prefill_step on a (1, 1) mesh (the plain step), {dt} B=2 S=4096: attention_impl=pallas launches "
+            f"{nk} (counts 0 just before), reference none; logits' gap to "
+            f"the reference path {rel:.3e} of its 2-norm (the largest "
+            f"element's {float((lk - lr).abs().max() / lr.abs().max()):.3e}"
+            f" of max |reference|"
+            f"{'; tol ' + str(TP_LOGIT_TOL) if dt == 'float32' else ''}); "
+            f"bitwise equal to the plain step's: {same}; moe_sharded calls "
+            f"{ck}, drops {sum(dropped)}; {sk:.4f} s kernels, {sr:.4f} s "
+            f"reference | {smi}")
+        res[dt] = {"launches": nk, "rel": rel, "same": same,
+                   "kernels_s": sk, "reference_s": sr}
+    del params, plain_params
+    torch.cuda.empty_cache()
+    return res
+
+
+def rank0_state(cfg, mesh, dev, with_opt: bool = True):
+    """Rank 0's real bf16 shards of ``cfg``'s parameters (random, seeded)
+    and (``with_opt``; else None) zeroed AdamW state with the f32
+    master, as DTensors placed by the rules on ``mesh`` (a mesh of
+    torch's fake process group); with their bytes."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import sharding as sh
+    from repro_torch.launch import steps as st
+    from repro_torch.tree import map_tree
+
+    gen = torch.Generator(device=dev).manual_seed(2021)
+
+    def place(tree, shardings, fill):
+        def one(t, ns):
+            local = list(t.shape)
+            for size, pl in zip(mesh.mesh.shape, ns.placements):
+                if pl.is_shard():
+                    local[pl.dim] //= int(size)
+            x = fill(local, t.dtype)
+            return DTensor.from_local(x, mesh, ns.placements,
+                                      run_check=False, shape=tuple(t.shape),
+                                      stride=t.stride())
+        return map_tree(one, tree, shardings)
+
+    def rand(shape_, dt):
+        return (torch.randn(shape_, generator=gen, device=dev) * 0.02).to(dt)
+
+    pstruct = st.params_struct(cfg, torch.bfloat16)
+    params = place(pstruct, sh.param_shardings(pstruct, mesh), rand)
+    if not with_opt:
+        return params, None, sum(x.to_local().numel()
+                                 * x.to_local().element_size()
+                                 for x in leaves_of(params))
+    ostruct = st.opt_struct(cfg, pstruct)
+    opt = place(ostruct, sh.opt_shardings(ostruct, mesh),
+                lambda s_, dt: torch.zeros(s_, dtype=dt, device=dev))
+    with torch.no_grad():
+        for d, m in zip(leaves_of(params), leaves_of(opt["master"])):
+            m.to_local().copy_(d.to_local())
+    nbytes = sum(x.to_local().numel() * x.to_local().element_size()
+                 for x in leaves_of(params) + leaves_of(opt))
+    return params, opt, nbytes
+
+
+# b) the mesh prefills of rank 0 of (16, 16): (arch, the kernels'
+# launches expected at full depth); B=32 S=4096 global, 2 rows a rank
+TP16_PREFILLS = (("yi-9b", {"flash_attention": 48, "moe_gmm": 0}),
+                 ("qwen3-moe-30b-a3b", {"flash_attention": 48,
+                                        "moe_gmm": 3 * 48}))
+TP16_BATCH = 32
+
+
+def tp_rank0_prefill(arch, expect, mesh, dev) -> dict:
+    """b) rank 0 of (16, 16): ``make_mesh_prefill_step`` with
+    attention_impl="pallas" on the rank's real bf16 shards of ``arch``
+    at full width and depth, B=32 S=4096 (2 rows a rank): flash on the
+    rank's 2 q heads and the kv head they select, ``moe_gmm`` on
+    ``moe_sharded``'s 8 local experts of F = 48; the launch counts set
+    to 0 just before the step and read just after.  Torch's fake group
+    moves no data (the gathered weights are whatever the buffers held),
+    so no value is compared; its all-to-all returns the rank's own send
+    buffer (``tp_rank0_part``), so that the dispatch's slot indices are
+    the rank's own."""
+    from repro_torch.configs import RunConfig, ShapeConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as st
+
+    cfg = get_config(arch)
+    shape = ShapeConfig("tp16", 4096, TP16_BATCH, "prefill")
+    run = RunConfig(model=cfg, shape=shape, attention_impl="pallas")
+    params, _, args = rank0_state(cfg, mesh, dev, with_opt=False)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    tok = torch.randint(0, cfg.vocab_size, (TP16_BATCH, 4096), generator=gen,
+                        device=dev, dtype=torch.int32)
+    step = st.make_mesh_prefill_step(cfg, run, mesh)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, _ = step(params, {"tokens": tok})
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: ops.LAUNCHES[k] for k in expect}
+    return {"launches": launches, "expect": expect, "s": secs,
+            "argument_bytes": args,
+            "logits_local": list(logits.to_local().shape),
+            "whole": sorted(step.whole)}
+
+
+def tp_rank0_part(out: str) -> int:
+    """b) in a process of its own (``python3 chip_smoke.py --phase23
+    OUT.json``): rank 0 of the (16, 16) mesh of torch's fake process
+    group (256 ranks) on the card, yi-9b train_4k at full width and
+    depth (48 layers, B=256 global: 16 rows a rank, grad_accum 8, remat,
+    bf16 with the f32 master) on the rank's real shards
+    (``rank0_state``): one warm-up and two timed ``make_mesh_train_step``
+    steps, their ``max_memory_allocated`` (arguments included) and
+    seconds, then ``FlopCounterMode`` over one more step; then the mesh
+    prefills of ``TP16_PREFILLS`` (``tp_rank0_prefill``).  The fake
+    group moves no data: no value is compared."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.analysis.roofline import model_flops
+    from repro_torch.configs import RunConfig, get_config, get_shape
+    from repro_torch.data import make_batch
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch import steps as st
+    from repro_torch.sharding_ctx import make_mesh
+
+    dev = torch.device("cuda")
+    dr.fake_world(256)
+    mesh = make_mesh((16, 16), ("data", "model"), "cuda")
+    cfg, shape = get_config("yi-9b"), get_shape("train_4k")
+    run = RunConfig(model=cfg, shape=shape)
+    params, opt, args = rank0_state(cfg, mesh, dev)
+    step = st.make_mesh_train_step(cfg, run, mesh)
+    secs, peaks = [], []
+    for i in range(3):
+        batch = make_batch(cfg, shape, i, seed=7, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated())
+    batch = make_batch(cfg, shape, 3, seed=7, device=dev)
+    with FlopCounterMode(display=False) as fc:
+        step(params, opt, batch)
+    torch.cuda.synchronize()
+    whole = sorted(step.whole)
+    del params, opt, step, batch
+    torch.cuda.empty_cache()
+
+    def a2a_own(out_, x, *args_, **kwargs):
+        """The fake group's all-to-all, as if every rank sent what this
+        one sends: the received slot indices stay in range."""
+        out_.copy_(x)
+    torch.distributed.all_to_all_single = a2a_own
+    prefill = {arch: tp_rank0_prefill(arch, expect, mesh, dev)
+               for arch, expect in TP16_PREFILLS}
+    Path(out).write_text(json.dumps({
+        "dot_flops": int(fc.get_total_flops()), "peaks": peaks,
+        "step_s": secs, "argument_bytes": args, "whole": whole,
+        "model_flops_rank": model_flops(cfg, shape) / 256,
+        "prefill": prefill}))
+    return 0
+
+
+def leaves_of(tree) -> list:
+    from repro_torch.tree import leaves
+    return leaves(tree)
+
+
+def tp_phase(dev, smi: str) -> dict:
+    """Phase 23: a) one-rank, on a world of one NCCL rank (a mesh step
+    of one rank is the plain step): ``Trainer(mesh=)``, the mesh prefill
+    through flash (yi-9b 4 layers) and through flash and ``moe_gmm``
+    with ``moe_sharded`` (qwen3 8 layers); b) rank 0 of (16, 16) on real
+    tensors (a subprocess): the train step's peak within PEAK_TOL of the
+    dry run's for the cell (``TP_ARTIFACT``, written by ``python -m
+    repro_torch.launch.dryrun --arch yi-9b --shape train_4k --device cpu
+    --out artifacts/dryrun_torch``), its dot FLOPs equal to the dry
+    run's; the mesh prefills' launches (``TP16_PREFILLS``)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.analysis.roofline import PEAK_FLOPS
+
+    out = {}
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            out["trainer"] = tp_trainer_check(dev, smi)
+            out["yi"] = tp_prefill_check(dev, smi, "yi-9b", TRAIN_LAYERS,
+                                         {"flash_attention": TRAIN_LAYERS})
+            out["qwen3"] = tp_prefill_check(
+                dev, smi, "qwen3-moe-30b-a3b", 8,
+                {"flash_attention": 8, "moe_gmm": 24})
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    predicted = json.loads((ROOT / TP_ARTIFACT).read_text())[0]
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "b.json"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--phase23",
+             str(path)], cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=600)
+        if proc.returncode != 0:
+            fail(f"tp b) exited {proc.returncode}: {proc.stderr[-3000:]}")
+        b = json.loads(path.read_text())
+        b["wall_s"] = time.perf_counter() - t0
+    peak = max(b["peaks"][1:])
+    want_peak = predicted["memory"]["peak_bytes"]
+    rel = want_peak / peak - 1
+    want_flops = predicted["counted"]["dot_flops"]
+    if b["dot_flops"] != want_flops or abs(rel) > PEAK_TOL:
+        fail(f"tp b) rank 0 of (16, 16): dot FLOPs {b['dot_flops']} vs the "
+             f"dry run's {want_flops}; peak {peak / 1e9:.3f} GB vs "
+             f"predicted {want_peak / 1e9:.3f} GB ({100 * rel:+.1f} %, tol "
+             f"{100 * PEAK_TOL:.0f} %)")
+    step_s = float(np.median(b["step_s"][1:]))
+    log(f"[tp] b) rank 0 of (16, 16) on real tensors (torch's fake process "
+        f"group of 256 ranks moves no data: no value is compared), yi-9b "
+        f"train_4k full width and depth, 16 rows a rank, grad_accum 8, "
+        f"remat, bf16: arguments {b['argument_bytes'] / 1e9:.3f} GB; "
+        f"max_memory_allocated {[round(x / 1e9, 3) for x in b['peaks']]} "
+        f"GB, the dry run's peak {want_peak / 1e9:.3f} GB "
+        f"({100 * rel:+.2f} %, tol {100 * PEAK_TOL:.0f} %); dot FLOPs "
+        f"{b['dot_flops']:.6e} (FlopCounterMode; equal to the dry run's); "
+        f"step s {[round(x, 4) for x in b['step_s']]}, median of the last "
+        f"2 {step_s:.4f} s; the rank's model FLOPs / (step s x "
+        f"{PEAK_FLOPS / 1e12:.1f} TFLOP/s) "
+        f"{b['model_flops_rank'] / (step_s * PEAK_FLOPS):.4f}, dot FLOPs "
+        f"{b['dot_flops'] / (step_s * PEAK_FLOPS):.4f}; whole over "
+        f"\"model\": {b['whole'] or 'none'} ({b['wall_s']:.1f} s with the "
+        f"process) | {smi}")
+    for arch, expect in TP16_PREFILLS:
+        pre = b["prefill"][arch]
+        want_shape = [TP16_BATCH // 16, 1, padded_vocab(arch) // 16]
+        if pre["launches"] != expect or pre["logits_local"] != want_shape:
+            fail(f"tp b) rank 0 of (16, 16) {arch} mesh prefill: launches "
+                 f"{pre['launches']} (want {expect}), local logits "
+                 f"{pre['logits_local']} (want {want_shape})")
+        log(f"[tp] b) rank 0 of (16, 16), {arch} full width and depth, "
+            f"make_mesh_prefill_step attention_impl=pallas, bf16 B=32 "
+            f"S=4096 global (2 rows a rank; fake group: no value "
+            f"compared): launches {pre['launches']} (counts 0 just before; "
+            f"want {expect}), the rank's last-token logits "
+            f"{pre['logits_local']} (its vocabulary columns), whole over "
+            f"\"model\": {pre['whole'] or 'none'}; arguments "
+            f"{pre['argument_bytes'] / 1e9:.3f} GB; {pre['s']:.4f} s | "
+            f"{smi}")
+    out["rank0"] = b
+    return out
+
+
+def padded_vocab(arch) -> int:
+    from repro_torch.configs import get_config
+    return get_config(arch).padded_vocab()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to PyTorch",
@@ -2674,6 +3145,9 @@ def main() -> int:
     log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
     dryrun_phase(smi)
     log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
+    tp = tp_phase(dev, smi)
+    tp16 = tp["rank0"]["prefill"]
+    log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
 
     # the main path's own shapes: the bf16 forwards' (B=2: yi-9b's
     # attention, jamba's up product and scan) on the wgmma routes, the f32
@@ -2714,6 +3188,14 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda", "cuda_route": "wgmma",
          "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
          "launches": fwd["wgmma"]["launches"],
+         "mesh_launches": {
+             f"{arch} prefill, rank 0 of (16, 16)": tp16[arch]["launches"][
+                 "flash_attention"] for arch in tp16},
+         "one_rank_mesh_launches": {
+             "yi-9b prefill": tp["yi"]["bfloat16"]["launches"][
+                 "flash_attention"],
+             "qwen3 prefill": tp["qwen3"]["bfloat16"]["launches"][
+                 "flash_attention"]},
          **{key: yi[key] for key in keys}},
         {"name": "flash_attention.simt", "route": "cuda",
          "cuda_route": "simt", "source": FLASH_SOURCE,
@@ -2722,6 +3204,11 @@ def main() -> int:
         {"name": "moe_gmm", "route": "cuda", "cuda_route": "wgmma",
          "source": GMM_SOURCE, "replaces": GMM_REPLACES,
          "launches": hybrid["wgmma"]["launches"]["moe_gmm"],
+         "mesh_launches": {
+             "qwen3-moe-30b-a3b prefill, rank 0 of (16, 16)": tp16[
+                 "qwen3-moe-30b-a3b"]["launches"]["moe_gmm"]},
+         "one_rank_mesh_launches": {"qwen3 prefill": tp["qwen3"][
+             "bfloat16"]["launches"]["moe_gmm"]},
          **{key: main_gmm[key] for key in keys}},
         {"name": "moe_gmm.simt", "route": "cuda", "cuda_route": "simt",
          "source": GMM_SOURCE, "replaces": GMM_REPLACES,
@@ -2750,4 +3237,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--phase22":
         sys.exit(dryrun_part(sys.argv[2], sys.argv[3]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--phase23":
+        sys.exit(tp_rank0_part(sys.argv[2]))
     sys.exit(main())

@@ -8,6 +8,12 @@ card's 80 GB and the useful ratio.
 
     PYTHONPATH=src python -m repro_torch.analysis.report DIR \\
         [roofline|roofline2|fit|dryrun]
+    PYTHONPATH=src python -m repro_torch.analysis.report DIR compare \\
+        BEFORE_DIR
+
+``compare_md`` sets each cell's peak, useful ratio and collective bytes
+beside an earlier run's (``git archive`` an older commit's
+``artifacts/dryrun_torch`` into a directory to compare with it).
 """
 from __future__ import annotations
 
@@ -114,6 +120,36 @@ def fit_md(cells, mesh="16x16"):
     return "\n".join(out)
 
 
+def compare_md(cells, before, mesh="16x16"):
+    """Per cell of ``mesh``: the peak bytes a device holds, the useful
+    ratio and the collective bytes a device sends in ``before`` (an
+    earlier run's cells) and in ``cells``, whether the cell now fits the
+    card, its bound and the sub-blocks computed whole on every "model"
+    rank (``tp_whole``)."""
+    out = ["| arch | shape | peak/dev before | after | fits | useful "
+           "before | after | coll B/dev before | after | bound | whole |",
+           "|---|---|---|---|---|---|---|---|---|---|---|"]
+    for (arch, shape, m), r in sorted(cells.items()):
+        if m != mesh or r.get("status") == "skipped":
+            continue
+        b = before.get((arch, shape, m), {})
+        if r.get("status") != "ok" or b.get("status") != "ok":
+            out.append(f"| {arch} | {shape} | ERROR | | | | | | | | |")
+            continue
+        peak = r["memory"]["peak_bytes"]
+        out.append(
+            f"| {arch} | {shape} | "
+            f"{fmt_bytes(b['memory']['peak_bytes'])} | {fmt_bytes(peak)} | "
+            f"{'yes' if peak <= CARD_BYTES else 'no'} | "
+            f"{b['roofline']['useful_ratio']:.3f} | "
+            f"{r['roofline']['useful_ratio']:.3f} | "
+            f"{fmt_bytes(b['counted']['collective_bytes'])} | "
+            f"{fmt_bytes(r['counted']['collective_bytes'])} | "
+            f"{r['roofline']['bottleneck']} | "
+            f"{', '.join(r.get('tp_whole', [])) or '-'} |")
+    return "\n".join(out)
+
+
 if __name__ == "__main__":
     art = sys.argv[1] if len(sys.argv) > 1 else "artifacts/dryrun"
     cells = load(art)
@@ -124,5 +160,7 @@ if __name__ == "__main__":
         print(roofline_md(cells, mesh="2x16x16"))
     elif mode == "fit":
         print(fit_md(cells))
+    elif mode == "compare":                 # DIR compare BEFORE_DIR
+        print(compare_md(cells, load(sys.argv[3])))
     else:
         print(dryrun_md(cells))

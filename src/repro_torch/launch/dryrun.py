@@ -30,7 +30,12 @@ exists: ``trace_s`` stands for ``lower_s`` / ``compile_s``, ``counted``
 scalar included), ``output_bytes`` (the rank's pieces of the outputs),
 ``temp_bytes`` (the peak of live bytes over the step less the
 arguments; outputs alive at the end included) and ``peak_bytes``
-(argument + temp).
+(argument + temp).  ``tp_whole``: the sub-block kinds the step computes
+whole on every "model" rank, where the slice has no tensor-parallel
+form yet ("mamba", "mlstm", "slstm", "mla"; "attn" / "cross" / "ffn"
+where "model" divides no head or ``d_ff``).  ``--moe-quant`` /
+``--moe-local-cf`` configure the expert-parallel dispatch the mesh
+steps run (``models/moe_sharded.py``), as the JAX CLI's do.
 """
 from __future__ import annotations
 
@@ -53,11 +58,6 @@ from repro_torch.tree import leaves, map_tree
 
 WORLD = 512                  # ranks of the fake world: the multi-pod mesh
 SKIP_REASON = "full attention; no sub-quadratic path"
-MOE_FLAGS_ERROR = (
-    "--moe-quant / --moe-local-cf configure the expert-parallel MoE "
-    "dispatch (models/moe_sharded.py), which the port's mesh steps do "
-    "not run: they compute data-parallel with the naive dispatch until "
-    "the dense layers' tensor-parallel compute lands (ROADMAP A14b)")
 
 
 def fake_world(world_size: int = WORLD) -> None:
@@ -189,6 +189,7 @@ def dry_run(cfg, shape, run, mesh_shape=(16, 16), device=None) -> dict:
                         dict(c.collective_bytes_by_kind)},
         "roofline": roof.to_dict(),
         "state_bytes_per_dev": rl.state_bytes(cfg, shape, n_chips),
+        "tp_whole": sorted(step.whole),
         "status": "ok",
     }
 
@@ -197,9 +198,11 @@ def run_cell(arch, shape_name, *, multi_pod=False, run_overrides=None,
              moe_overrides=None, device=None):
     """Dry-runs one production cell on (16, 16), or (2, 16, 16) with
     ``multi_pod``; returns its result dict (JSON-serializable)."""
-    if moe_overrides:
-        raise NotImplementedError(MOE_FLAGS_ERROR)
     cfg = get_config(arch)
+    if moe_overrides and cfg.moe is not None:
+        # e.g. {"dispatch_quant": "int8"} or {"local_capacity_factor": 1.0}
+        cfg = dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, **moe_overrides))
     shape = get_shape(shape_name)
     run_overrides = dict(run_overrides or {})
     if "grad_accum" in run_overrides:
@@ -231,8 +234,11 @@ def main(argv=None):
                     help="where the fake tensors and the mesh live: the "
                          "card unless told otherwise (cpu)")
     args = ap.parse_args(argv)
-    if args.moe_quant or args.moe_local_cf:
-        raise NotImplementedError(MOE_FLAGS_ERROR)
+    moe_overrides = {}
+    if args.moe_quant:
+        moe_overrides["dispatch_quant"] = args.moe_quant
+    if args.moe_local_cf:
+        moe_overrides["local_capacity_factor"] = args.moe_local_cf
 
     overrides = {}
     if args.remat_policy:
@@ -265,6 +271,7 @@ def main(argv=None):
             try:
                 r = run_cell(arch, shape_name, multi_pod=mp,
                              run_overrides=overrides or None,
+                             moe_overrides=moe_overrides or None,
                              device=args.device)
                 results.append(r)
                 rf, m = r["roofline"], r["memory"]
@@ -276,6 +283,7 @@ def main(argv=None):
                       f"coll/dev={r['counted']['collective_bytes']:.3e}B "
                       f"useful={rf['useful_ratio']:.3f} "
                       f"bound={rf['bottleneck']} "
+                      f"whole={','.join(r['tp_whole']) or '-'} "
                       f"terms(c/m/x)=({rf['compute_s']:.4f}/"
                       f"{rf['memory_s']:.4f}/{rf['collective_s']:.4f})s")
             except Exception as e:  # noqa: BLE001 — record, keep sweeping

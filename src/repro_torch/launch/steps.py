@@ -12,7 +12,11 @@ are the JAX package's abstract structures as trees of meta tensors in
 the port's layout (each stack a list of per-super-block dicts, no
 ``n_super`` axis): the dry run places them on a mesh as fake tensors;
 the trainer and server allocate real buffers of the same shapes.  The
-``make_mesh_*_step`` builders run the steps on trees of DTensors.
+``make_mesh_*_step`` builders run the steps on trees of DTensors the
+way the rules store them: each rank computes on its own shards, the
+model gathering a super-block's weights over "data" as it runs it and
+splitting attention, the FFN and the head over "model"
+(``models/tp.py``).
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.models import model as M
+from repro_torch.models import tp
 from repro_torch.optim import adamw_init, adamw_update, cosine_schedule
 from repro_torch.tree import leaves, map_tree, unflatten
 
@@ -108,6 +113,15 @@ def _resolve_kernels(run: RunConfig) -> dict:
             "scan_fn": kops.mamba_scan, "chunk_fn": kops.mlstm_chunk_model}
 
 
+def _check_trainable(run: RunConfig) -> None:
+    if run.attention_impl == "pallas":
+        raise NotImplementedError(
+            "make_train_step: attention_impl='pallas' has no backward: the "
+            "port's kernels are forward-only, as the JAX package's Pallas "
+            "flash kernel is (it fails under jax.grad, ROADMAP C6); train "
+            "with attention_impl='reference'")
+
+
 def make_value_and_grad(cfg: ModelConfig, run: RunConfig):
     """``fn(params, batch) -> (loss, grads)``: the training loss (CE + MoE
     aux) and its gradient, a tree of ``params``' structure.  With
@@ -116,12 +130,7 @@ def make_value_and_grad(cfg: ModelConfig, run: RunConfig):
     the loss, divided by a.  The reference path only: no kernel of the
     port has a backward (ROADMAP C6), so ``attention_impl="pallas"``
     raises."""
-    if run.attention_impl == "pallas":
-        raise NotImplementedError(
-            "make_train_step: attention_impl='pallas' has no backward: the "
-            "port's kernels are forward-only, as the JAX package's Pallas "
-            "flash kernel is (it fails under jax.grad, ROADMAP C6); train "
-            "with attention_impl='reference'")
+    _check_trainable(run)
     dt = _dtype(run)
     accum = max(1, run.shape.grad_accum)
 
@@ -173,36 +182,34 @@ def make_train_step(cfg: ModelConfig, run: RunConfig):
     return train_step
 
 
-class _Rank:
+class _Rank(tp.MeshView):
     """This rank's place on a ``DeviceMesh``, read once when a step is
     built (nothing here runs a collective or touches a tensor, so the
-    steps also trace on fake tensors): the sizes and coordinate per mesh
-    dim, and the rows of a batch split over the ("pod", "data") axes as
-    ``sharding.batch_shardings`` splits it (row-major over those axes)."""
+    steps also trace on fake tensors): ``tp.MeshView``'s names, sizes,
+    coordinates and groups, and the rows of a batch split over the
+    ("pod", "data") axes as ``sharding.batch_shardings`` splits it
+    (row-major over those axes)."""
 
     def __init__(self, mesh):
         from torch.distributed.tensor import Replicate, Shard
 
         from repro_torch import sharding as sh
-        from repro_torch.sharding_ctx import abstract_mesh, axis_names
+        from repro_torch.sharding_ctx import abstract_mesh
 
-        self.mesh = mesh
-        self.names = axis_names(mesh)
-        self.sizes = tuple(int(n) for n in mesh.mesh.shape)
-        self.coord = tuple(mesh.get_coordinate())
+        super().__init__(mesh)
         self.single = mesh.size() == 1
         self.abstract = abstract_mesh(self.sizes, self.names)
-        shape, coord = dict(zip(self.names, self.sizes)), \
-            dict(zip(self.names, self.coord))
         axes = sh.batch_axes(mesh)
-        self.groups = [mesh.get_group(a) for a in axes if shape[a] > 1]
         self.n, self.idx = 1, 0          # row-major over the batch axes
         for a in axes:
-            self.n = self.n * shape[a]
-            self.idx = self.idx * shape[a] + coord[a]
+            self.n = self.n * self.size(a)
+            self.idx = self.idx * self.size(a) + self.coordinate(a)
         self.batch_pl = [Shard(0) if a in axes else Replicate()
                          for a in self.names]
         self.whole = [Replicate()] * len(self.sizes)
+        # (axis, group) of each batch axis of more than one rank
+        self.batch_groups = [(a, self.group(a)) for a in axes
+                             if self.size(a) > 1]
 
     def full(self, t):
         """The whole of a DTensor leaf (its own storage when nothing is
@@ -257,21 +264,26 @@ class _Rank:
                                shape=tuple(shape), stride=_contiguous(shape))
         return t.redistribute(self.mesh, placements)
 
-    def write_back(self, tree, new, held=None):
-        """Each DTensor leaf of ``tree`` takes this rank's piece of its
-        leaf in ``new`` (split as ``held``), in place; a leaf that is
-        already that piece's storage (one rank) is left alone."""
-        from torch.distributed.tensor import DTensor
 
-        from repro_torch.tree import flatten
+def distribute(tree, shardings, mesh):
+    """A tree of DTensors placed by ``shardings`` (a tree of
+    ``NamedSharding``) from a tree of whole tensors that every rank holds
+    alike: each rank keeps a copy of its own piece (no collective)."""
+    r = _Rank(mesh)
 
-        with torch.no_grad():
-            for (_, d), (_, f) in zip(flatten(tree), flatten(new)):
-                if not isinstance(d, DTensor):
-                    continue
-                local = d.to_local()
-                if not local.is_set_to(f):
-                    local.copy_(self.shard(f, d.placements, held))
+    def one(x, ns):
+        pl = ns.placements
+        return r.place(r.shard(x, pl).contiguous().clone(), pl, pl)
+    return map_tree(one, tree, shardings)
+
+
+def load_pieces(tree, whole, mesh):
+    """Copies into each DTensor of ``tree``, in place, this rank's piece
+    of the matching whole tensor of ``whole``."""
+    r = _Rank(mesh)
+    with torch.no_grad():
+        for d, x in zip(leaves(tree), leaves(whole)):
+            tp.own(d).copy_(r.shard(x, d.placements))
 
 
 def _contiguous(shape) -> tuple:
@@ -282,60 +294,139 @@ def _contiguous(shape) -> tuple:
     return tuple(reversed(stride))
 
 
+def _microbatches(r: _Rank, batch, accum: int):
+    """(the rank's rows of each of ``accum`` microbatches, whether the
+    rows are split over the batch axes).  Microbatch i is rows [i B/a,
+    (i+1) B/a) of the global batch, as the JAX step reshapes it, and the
+    rank takes its slice of them; a batch given as DTensors placed by
+    ``batch_shardings`` holds the rank's rows, cut into ``accum`` pieces
+    in order.  A batch the axes cannot divide runs whole on every
+    rank."""
+    from torch.distributed.tensor import DTensor
+    if any(isinstance(v, DTensor) for v in batch.values()):
+        rows, held = r.rows(batch)
+        split = held is r.batch_pl
+    else:
+        b = next(iter(batch.values())).shape[0]
+        split = b % (r.n * accum) == 0
+        rows = batch
+        if split and accum > 1:
+            per, sub = b // accum, b // accum // r.n
+            return [{k: v[i * per + r.idx * sub:i * per + (r.idx + 1) * sub]
+                     for k, v in batch.items()} for i in range(accum)], True
+        if split:
+            rows, _ = r.rows(batch)
+    n = next(iter(rows.values())).shape[0] // accum
+    return [{k: v[i * n:(i + 1) * n] for k, v in rows.items()}
+            for i in range(accum)], split
+
+
+def _counted(r: _Rank, placements) -> bool:
+    """Whether this rank counts a leaf's piece in the gradient norm: the
+    first rank of each mesh dim that replicates it."""
+    return all(pl.is_shard() or n == 1 or c == 0
+               for pl, n, c in zip(placements, r.sizes, r.coord))
+
+
 def make_mesh_train_step(cfg: ModelConfig, run: RunConfig, mesh):
     """``step(params, opt_state, batch)`` on trees of DTensors placed by
     ``sharding.param_shardings`` / ``opt_shardings`` on ``mesh``: the
     counterpart of the JAX package's ``jax.jit(make_train_step,
-    in_shardings=..., out_shardings=...)``, whose compute GSPMD
-    partitions.  The port's model does not run on DTensors, so this
-    step stores the state sharded and computes data-parallel:
+    in_shardings=..., out_shardings=...)``, computed the way the rules
+    store the state.  Each rank
 
-      1. gathers the full parameters and optimizer state;
-      2. runs ``make_value_and_grad`` on the rank's rows of the global
-         batch, split over the ("pod", "data") axes as
-         ``sharding.batch_shardings`` splits it (a batch those axes
-         cannot divide is computed whole on every rank, as the JAX rule
-         replicates it); the batch's leaves are plain tensors of the
-         global batch or DTensors placed by ``batch_shardings``;
-      3. averages the gradients and the loss over those axes;
-      4. applies ``adamw_update`` to the full state;
-      5. writes each rank's shard back into the DTensors' local tensors,
-         in place.
+      1. runs ``forward_loss`` on its rows of each microbatch (the global
+         batch split over the ("pod", "data") axes as ``batch_shardings``
+         splits it; plain tensors of the global batch or DTensors) with
+         every parameter a ``tp.Stored`` over its shard: a super-block's
+         weights are gathered over "data" inside its remat body and freed
+         after, attention, the FFN and the head computed
+         tensor-parallel over "model", the MoE through ``moe_sharded``
+         (the step enters ``use_mesh``), the sub-blocks the slice does
+         not partition whole (``tp.note_whole``);
+      2. gets the gradient of its shards: reduce-scattered over "data"
+         by the gathers' backward, summed over the batch axes that
+         replicate a leaf, divided by the number of row shards;
+      3. applies ``adamw_update`` to its shards in place, the gradient
+         norm summed over the mesh (``sharded_norm``).
 
-    On a mesh of one rank the full state is the DTensors' own storage:
-    the plain step with no copy.  The result equals ``make_train_step``
+    On a mesh of one rank: the plain step on the DTensors' own storage
+    (no copy; a caller inside ``use_mesh`` gets the MoE's expert-parallel
+    dispatch, as from the plain step).  The result equals
+    ``make_train_step``
     on the global batch within f32 rounding for a loss that is a mean
-    over equal-sized shards (a dense model's).  An MoE layer computes
-    its capacity and aux loss on the rank's shard (the naive dispatch:
-    the step does not enter ``use_mesh``), so an MoE model's loss is not
-    exactly the global one across ranks."""
+    over equal-sized shards.  ``whole`` on the returned function is the
+    set of sub-block kinds its last call computed whole."""
     import torch.distributed as dist
 
-    value_and_grad = make_value_and_grad(cfg, run)
-    r = _Rank(mesh)
+    from repro_torch.optim.adamw import sharded_norm
+    from repro_torch.sharding_ctx import use_mesh
 
-    def mean(t):
-        for g in r.groups:
-            dist.all_reduce(t, group=g)
-        return t.div_(r.n)
+    r = _Rank(mesh)
+    if r.single:
+        plain = make_train_step(cfg, run)
+
+        def one_rank(params, opt_state, batch):
+            lo = map_tree(tp.own, opt_state)
+            _, new_o, om = plain(map_tree(tp.own, params), lo,
+                                 map_tree(tp.own, batch))
+            tp.own(opt_state["step"]).copy_(new_o["step"])
+            return params, opt_state, om
+        one_rank.whole = set()
+        return one_rank
+
+    _check_trainable(run)
+    dt = _dtype(run)
+    accum = max(1, run.shape.grad_accum)
+    groups = [g for g in r.groups if g is not None]
 
     def train_step(params, opt_state, batch):
-        full_p = map_tree(r.full, params)
-        full_o = map_tree(r.full, opt_state)
-        lr = cosine_schedule(full_o["step"], base_lr=run.learning_rate)
-        mb, held = r.rows(batch)
-        loss, grads = value_and_grad(full_p, mb)
-        if held is r.batch_pl and r.groups:
-            loss = mean(loss.clone())
-            for g in leaves(grads):
-                mean(g)
+        stored = map_tree(tp.stored, params)
+        sl = leaves(stored)
+        ps = [s.local for s in sl]
+        for p in ps:
+            p.requires_grad_(True)
+        mbs, split = _microbatches(r, batch, accum)
+        lacc, gacc = 0.0, None
+        with use_mesh(mesh), tp.recording() as whole:
+            for mb in mbs:
+                loss, _ = M.forward_loss(stored, cfg, mb, compute_dtype=dt,
+                                         run_cfg=run)
+                grads = torch.autograd.grad(loss, ps)
+                lacc = lacc + loss.detach()
+                if accum == 1:
+                    gacc = list(grads)
+                elif gacc is None:
+                    gacc = [g.to(torch.float32) for g in grads]
+                else:
+                    for a, g in zip(gacc, grads):
+                        a.add_(g.to(torch.float32))
+        train_step.whole = whole
+        with torch.no_grad():
+            loss = lacc / accum if accum > 1 else lacc
+            loss = loss.clone()
+            for _, g in r.batch_groups:
+                dist.all_reduce(loss, group=g)
+            loss = loss / r.n
+            for g, s in zip(gacc, sl):
+                if accum > 1:
+                    g.div_(accum)
+                for axis, grp in r.batch_groups:
+                    if not s.placements[r.names.index(axis)].is_shard():
+                        dist.all_reduce(g, group=grp)
+                g.div_(r.n)
+        lo = map_tree(tp.own, opt_state)
+        lr = cosine_schedule(lo["step"], base_lr=run.learning_rate)
+        counted = [_counted(r, s.placements) for s in sl]
         _, new_o, om = adamw_update(
-            grads, full_o, full_p, lr=lr, beta1=run.beta1, beta2=run.beta2,
-            weight_decay=run.weight_decay, grad_clip=run.grad_clip)
-        r.write_back(params, full_p)
-        r.write_back(opt_state, new_o)
+            unflatten(params, gacc), lo, unflatten(params, ps), lr=lr,
+            beta1=run.beta1, beta2=run.beta2, weight_decay=run.weight_decay,
+            grad_clip=run.grad_clip,
+            norm_fn=lambda t: sharded_norm(t, counted, groups))
+        tp.own(opt_state["step"]).copy_(new_o["step"])
         return params, opt_state, {"loss": loss, **om}
 
+    train_step.whole = set()
     return train_step
 
 
@@ -355,37 +446,88 @@ def _cache_placements(r: _Rank, caches):
     return map_tree(lambda s: placements(r.mesh, s.spec), shardings), rows
 
 
+def _logit_placements(r: _Rank, held, params):
+    """``held`` with the vocabulary dim split over "model" where the
+    head left each rank its own columns."""
+    from torch.distributed.tensor import Shard
+
+    if "lm_head" not in params or "model" not in r.names:
+        return held
+    i = r.names.index("model")
+    if r.sizes[i] == 1 or params["lm_head"]["w"].placements[i] != Shard(1):
+        return held
+    out = list(held)
+    out[i] = Shard(2)
+    return out
+
+
 def make_mesh_prefill_step(cfg: ModelConfig, run: RunConfig, mesh):
     """``step(params, batch) -> (logits, caches)`` on a tree of DTensors
     placed by ``sharding.param_shardings``: the counterpart of the JAX
     package's ``jax.jit(make_prefill_step, in_shardings=(psh, bsh))``,
-    computed as ``make_mesh_train_step`` computes: the full parameters
-    gathered, the rank's rows of the batch (split as ``batch_shardings``
-    splits it; plain tensors of the global batch or DTensors) through
-    ``make_prefill_step``.  Returns the last-token logits as a DTensor
-    split over the batch axes and the caches as DTensors placed by
-    ``sharding.cache_shardings`` (each rank keeps its slice of the
-    sequence; where the cache rule splits the batch otherwise than the
-    batch rule, as on a mesh with a "pod" axis, DTensor redistributes
-    the rows).  On one rank: the plain step's tensors, uncopied."""
+    computed as ``make_mesh_train_step`` computes: the rank's rows of
+    the batch (split as ``batch_shardings`` splits it; plain tensors of
+    the global batch or DTensors) through ``make_prefill_step``'s
+    forward on the rank's shards, tensor-parallel over "model"; with
+    ``attention_impl="pallas"`` the flash kernel runs on the rank's
+    heads and ``moe_gmm`` on its experts.  Returns the last-token logits
+    as a DTensor split over the batch axes (and over "model" on the
+    vocabulary) and the caches as DTensors placed by
+    ``sharding.cache_shardings``: each attention cache leaves the model
+    with the rank's slice of the sequence and every kv head, and DTensor
+    redistributes where the cache rule splits rows otherwise than the
+    batch rule, as on a mesh with a "pod" axis.  On one rank: the plain
+    step's tensors, uncopied."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.sharding_ctx import use_mesh
+
     prefill = make_prefill_step(cfg, run)
+    hooks = _prefill_kernels(run)
+    dt = _dtype(run)
     r = _Rank(mesh)
 
     def prefill_step(params, batch):
         mb, held = r.rows(batch)
-        logits, caches = prefill(map_tree(r.full, params), mb)
-        specs, _ = _cache_placements(r, _global_shapes(caches, held, r))
-        return (r.place(logits, held, held),
-                map_tree(lambda x, pl: r.place(x, held, pl), caches, specs))
+        if r.single:
+            logits, caches = prefill(map_tree(tp.own, params), mb)
+        else:
+            with use_mesh(mesh), tp.recording() as whole:
+                logits, caches = M.prefill(
+                    map_tree(tp.stored, params), cfg, mb, compute_dtype=dt,
+                    q_chunk=run.attention_q_chunk, **hooks)
+            prefill_step.whole = whole
+        lpl = _logit_placements(r, held, params) if not r.single else held
+        glob = _global_caches(cfg, mb, held, r)
+        specs, _ = _cache_placements(r, glob)
 
+        def place(x, g, pl):
+            h = list(held)
+            if x.dim() > 1 and x.shape[1] != g.shape[1]:
+                h[r.names.index("model")] = Shard(1)   # heads_to_seq's
+            return r.place(x, h, pl)
+        return (r.place(logits, lpl, lpl),
+                map_tree(place, caches, glob, specs))
+
+    prefill_step.whole = set()
     return prefill_step
 
 
-def _global_shapes(tree, held, r: _Rank):
-    """Meta tensors of the global shapes of a tree of row pieces."""
+def _prefill_kernels(run: RunConfig) -> dict:
+    """The kernel hooks a prefill takes: flash and ``moe_gmm`` (the
+    scan's and the mLSTM's kernels return no state)."""
+    k = _resolve_kernels(run)
+    return {"flash_fn": k["flash_fn"], "gmm_fn": k["gmm_fn"]}
+
+
+def _global_caches(cfg, mb, held, r: _Rank):
+    """The global shapes of a prefill's caches: ``init_cache`` of the
+    global batch at the prompt's length, on the meta device."""
     n = r.n if held is r.batch_pl else 1
-    return map_tree(lambda x: torch.empty((x.shape[0] * n,) + x.shape[1:],
-                                          device="meta"), tree)
+    tokens = mb["tokens"]
+    length = tokens.shape[1] + (mb["patch_embeds"].shape[1]
+                                if "patch_embeds" in mb else 0)
+    return M.init_cache(cfg, tokens.shape[0] * n, length, device="meta")
 
 
 def make_mesh_decode_step(cfg: ModelConfig, run: RunConfig, mesh):
@@ -395,40 +537,57 @@ def make_mesh_decode_step(cfg: ModelConfig, run: RunConfig, mesh):
     and the caches donated.  ``params`` and ``caches`` are trees of
     DTensors placed by ``param_shardings`` / ``cache_shardings``;
     ``token`` is the global (B, 1) batch (a plain tensor or a DTensor),
-    ``pos`` an int.  The full parameters are gathered; each cache leaf's
-    shard is gathered over the dims the rule splits besides the batch
-    ("model" on the KV sequence, "data" too when the batch is not
-    split), the rank computes the rows its caches hold (the batch over
-    "data" where the rule splits it; a "pod" axis repeats them), and
-    writes each leaf's new shard back into its DTensor, in place.
-    Returns (logits as a DTensor split as those rows, caches).  On one
+    ``pos`` an int.  The rank computes the rows its caches hold (the
+    batch over "data" where the rule splits it; a "pod" axis repeats
+    them) on its parameter shards, tensor-parallel over "model", and
+    uses each cache shard in place: attention (and MLA) run
+    sequence-parallel over the ranks that split the cache's sequence
+    (q gathered over "model", a softmax combined over them, the new k /
+    v written by the rank whose slice holds ``pos``); a recurrent state
+    is replaced in its storage.  Returns (logits as a DTensor split as
+    those rows, and over "model" on the vocabulary; caches).  On one
     rank: the plain step on the caches' own storage, uncopied."""
+    from repro_torch.sharding_ctx import use_mesh
+
     decode = make_decode_step(cfg, run)
+    dt = _dtype(run)
     r = _Rank(mesh)
 
     def decode_step(params, caches, token, pos):
-        specs, rows = _cache_placements(r, caches)
-
-        def gather(d):
-            if r.single or list(d.placements) == rows:
-                return d.to_local()
-            return d.redistribute(r.mesh, rows).to_local()
-
-        local = map_tree(gather, caches)
+        _, rows = _cache_placements(r, caches)
         tok = r.shard(r.full(token), rows)
-        logits, new = decode(map_tree(r.full, params), local, tok, pos)
-        r.write_back(caches, new, rows)
-        return r.place(logits, rows, rows), caches
+        if r.single:
+            logits, new = decode(map_tree(tp.own, params),
+                                 map_tree(tp.own, caches), tok, pos)
+        else:
+            with use_mesh(mesh), tp.recording() as whole, torch.no_grad():
+                logits, new = M.decode_step(
+                    map_tree(tp.stored, params), cfg,
+                    map_tree(tp.stored, caches),
+                    tok, pos, compute_dtype=dt)
+            decode_step.whole = whole
+        with torch.no_grad():
+            for d, x in zip(leaves(caches), leaves(new)):
+                own = tp.own(d)
+                if not own.is_set_to(x):
+                    own.copy_(x)
+        lpl = _logit_placements(r, rows, params) if not r.single else rows
+        return r.place(logits, lpl, lpl), caches
 
+    decode_step.whole = set()
     return decode_step
 
 
 def make_prefill_step(cfg: ModelConfig, run: RunConfig):
+    """``step(params, batch) -> (logits, caches)``; with
+    ``attention_impl="pallas"`` through the flash and ``moe_gmm``
+    kernels."""
     dt = _dtype(run)
+    hooks = _prefill_kernels(run)
 
     def prefill_step(params, batch):
         return M.prefill(params, cfg, batch, compute_dtype=dt,
-                         q_chunk=run.attention_q_chunk)
+                         q_chunk=run.attention_q_chunk, **hooks)
 
     return prefill_step
 

@@ -45,9 +45,18 @@ def build(arch, *, reduced=True, shape_name="train_4k", batch=None, seq=None,
 
 
 class Trainer:
+    """``mesh``: a ``DeviceMesh`` every rank of which builds the trainer
+    (the counterpart of the JAX ``Trainer(mesh=...)``): the state is
+    placed by ``param_shardings`` / ``opt_shardings`` (each rank keeps
+    its pieces of the same seeded init), the step is
+    ``make_mesh_train_step`` on the global batch, and checkpoints stay
+    the JAX package's npz files, the state gathered to the host and
+    written by rank 0.  ``mesh=None`` is the single-device trainer."""
+
     def __init__(self, cfg, shape, run, *, ckpt_dir=None, seed=0, keep=3,
-                 device=None):
+                 device=None, mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.cfg, self.shape, self.run = cfg, shape, run
         self.pipe = SyntheticPipeline(cfg, shape, seed=seed,
                                       device=self.device)
@@ -64,7 +73,15 @@ class Trainer:
                               else x, params)
         self.params = params
         self.opt = adamw_init(params)
-        self._step = st.make_train_step(cfg, run)
+        if mesh is None:
+            self._step = st.make_train_step(cfg, run)
+        else:
+            from repro_torch import sharding as sh
+            self.params = st.distribute(
+                self.params, sh.param_shardings(self.params, mesh), mesh)
+            self.opt = st.distribute(
+                self.opt, sh.opt_shardings(self.opt, mesh), mesh)
+            self._step = st.make_mesh_train_step(cfg, run, mesh)
         if ckpt_dir and latest_step(ckpt_dir) is not None:
             self.restore(ckpt_dir)
 
@@ -76,15 +93,39 @@ class Trainer:
         signal.signal(signal.SIGTERM, handler)
 
     def trees(self) -> dict:
-        return {"params": self.params, "opt": self.opt}
+        """The state; on a mesh gathered whole (every rank calls it)."""
+        trees = {"params": self.params, "opt": self.opt}
+        if self.mesh is None:
+            return trees
+        return {k: map_tree(lambda d: d.full_tensor(), v)
+                for k, v in trees.items()}
+
+    def _writes(self) -> bool:
+        import torch.distributed as dist
+        return self.mesh is None or dist.get_rank() == 0
 
     def restore(self, ckpt_dir, step=None):
         """Loads checkpoint ``step`` (the latest by default) into the
-        trainer and resumes from it; returns the step."""
-        step, trees = restore(ckpt_dir, self.trees(), step=step)
-        self.params, self.opt = trees["params"], trees["opt"]
+        trainer and resumes from it; returns the step.  On a mesh each
+        rank reads the files and keeps its pieces, in place."""
+        step, trees = restore(ckpt_dir, {"params": self.params,
+                                         "opt": self.opt}, step=step)
+        if self.mesh is None:
+            self.params, self.opt = trees["params"], trees["opt"]
+        else:
+            st.load_pieces(self.params, trees["params"], self.mesh)
+            st.load_pieces(self.opt, trees["opt"], self.mesh)
         self.step_num = step
         return step
+
+    def _save(self, blocking: bool):
+        trees = self.trees()
+        if not self._writes():
+            return
+        if blocking:
+            self.ckpt.save_blocking(self.step_num, trees)
+        else:
+            self.ckpt.save_async(self.step_num, trees)
 
     # -- loop --------------------------------------------------------------------
     def train(self, num_steps, *, ckpt_every=25, log_every=10, log=print):
@@ -109,10 +150,10 @@ class Trainer:
                     f"gnorm {self.last_metrics['grad_norm']:.3f} "
                     f"({time.time() - t0:.2f}s)")
             if self.ckpt and self.step_num % ckpt_every == 0:
-                self.ckpt.save_async(self.step_num, self.trees())
+                self._save(blocking=False)
             if self._preempt_requested:
                 if self.ckpt:
-                    self.ckpt.save_blocking(self.step_num, self.trees())
+                    self._save(blocking=True)
                 log(f"preemption notice honored at step {self.step_num}")
                 break
         if self.ckpt:

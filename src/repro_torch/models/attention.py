@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.models import tp
 from repro_torch.models.layers import apply_rope, dense_init, rms_head_norm
 
 # --------------------------------------------------------------------------
@@ -40,10 +41,15 @@ def init_attention(gen, d_model, num_heads, num_kv_heads, head_dim, device,
 # core scaled-dot-product with GQA grouping
 # --------------------------------------------------------------------------
 
-def _sdpa(q, k, v, mask):
+def _sdpa(q, k, v, mask, groups=(), heads_to=None):
     """q: (B,Sq,H,D), k/v: (B,Skv,Hkv,D), mask: (B,Sq,Skv) bool or None.
     Returns (B,Sq,H,D).  Scores and softmax in f32; the probabilities are
-    cast to q's dtype before the product with v, as in the JAX package."""
+    cast to q's dtype before the product with v, as in the JAX package.
+    ``groups``: the process groups over whose ranks the keys are split
+    (a decode cache's sequence slices): the softmax's max and sum and the
+    output are reduced over them (``tp.seq_softmax``).  ``heads_to``, one
+    of ``groups``: the output is reduce-scattered over its ranks on the
+    head dim instead (each keeps its slice of the H heads)."""
     B, Sq, H, D = q.shape
     Hkv = k.shape[2]
     G = H // Hkv
@@ -56,9 +62,13 @@ def _sdpa(q, k, v, mask):
     if mask is not None:
         big_neg = torch.finfo(torch.float32).min
         scores = scores.masked_fill(~mask[:, None, None, :, :], big_neg)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
-    return out.reshape(B, Sq, H, v.shape[-1])
+    probs = tp.seq_softmax(scores, groups).to(q.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v).reshape(
+        B, Sq, H, v.shape[-1])
+    if heads_to is None:
+        return tp.seq_sum(out, groups)
+    out = tp.seq_sum(out, [g for g in groups if g is not heads_to])
+    return tp.reduce_scatter(out, heads_to, tp.model_size(), 2)
 
 
 def chunked_attention(q, k, v, *, q_positions, kv_positions, causal,
@@ -159,7 +169,8 @@ def init_kv_cache(batch, max_len, num_kv_heads, head_dim, dtype, device):
 
 
 def attention_decode(p, x, cache, *, pos, rope_theta=1e4, use_rope=True,
-                     qk_norm=False, cross=False):
+                     qk_norm=False, cross=False, seq=None,
+                     heads_split=False):
     """One-token decode.  x: (B,1,D); cache {"k","v"}: (B,Smax,Hkv,D);
     pos: int, the index of the new token.  Returns (out, cache).
 
@@ -168,7 +179,17 @@ def attention_decode(p, x, cache, *, pos, rope_theta=1e4, use_rope=True,
     spares a copy of the cache per step).  Like ``dynamic_update_slice``,
     the write index is clamped into the cache.  With ``cross`` the cache
     is the encoder's static kv: nothing is written, every key is valid
-    and q takes no RoPE."""
+    and q takes no RoPE.
+
+    On a mesh step's ranks: ``seq`` = (groups, offset, length) when the
+    cache holds the rank's slice [offset, offset + Smax) of a sequence of
+    ``length`` split over ``groups`` (``tp.seq_split``): the rank whose
+    slice holds ``pos`` writes, and the softmax is combined over the
+    groups; ``heads_split``: ``p`` holds the rank's q heads (and kv
+    heads, or every kv head), so q (and the new k / v) are gathered over
+    "model" before attention and the output keeps the rank's heads for
+    its row-parallel ``wo`` (reduce-scattered to them where "model" is
+    one of the sequence's groups)."""
     dt = x.dtype
     # filled on the device: no host-to-device copy to wait on
     pos_t = torch.full((1,), pos, dtype=torch.int64, device=x.device)
@@ -177,8 +198,12 @@ def attention_decode(p, x, cache, *, pos, rope_theta=1e4, use_rope=True,
         q = rms_head_norm(q, p["q_norm"])
     if use_rope and not cross:
         q = apply_rope(q, pos_t, rope_theta)
+    if heads_split:
+        h_loc = q.shape[2]
+        q = tp.gather_heads(q)
 
     smax = cache["k"].shape[1]
+    groups, offset, length = seq or ((), 0, smax)
     if cross:
         kv_valid = None
     else:
@@ -188,13 +213,31 @@ def attention_decode(p, x, cache, *, pos, rope_theta=1e4, use_rope=True,
             k_new = rms_head_norm(k_new, p["k_norm"])
         if use_rope:
             k_new = apply_rope(k_new, pos_t, rope_theta)
-        at = min(max(pos, 0), smax - 1)
-        cache["k"][:, at:at + 1] = k_new.to(cache["k"].dtype)
-        cache["v"][:, at:at + 1] = v_new.to(cache["v"].dtype)
+        if k_new.shape[2] < cache["k"].shape[2]:
+            k_new, v_new = tp.gather_heads(k_new), tp.gather_heads(v_new)
+        at = min(max(pos, 0), length - 1) - offset
+        if 0 <= at < smax:
+            cache["k"][:, at:at + 1] = k_new.to(cache["k"].dtype)
+            cache["v"][:, at:at + 1] = v_new.to(cache["v"].dtype)
         kv_valid = pos + 1
 
     kv_positions = torch.arange(smax, device=x.device)
-    out = chunked_attention(q, cache["k"].to(dt), cache["v"].to(dt),
-                            q_positions=pos_t, kv_positions=kv_positions,
-                            causal=False, kv_valid_len=kv_valid)
+    if not groups:
+        out = chunked_attention(q, cache["k"].to(dt), cache["v"].to(dt),
+                                q_positions=pos_t, kv_positions=kv_positions,
+                                causal=False, kv_valid_len=kv_valid)
+    else:
+        mask = None
+        if kv_valid is not None:
+            mask = (kv_positions + offset < kv_valid)[None, None, :].expand(
+                q.shape[0], 1, smax)
+        # where "model" splits the sequence too, its sum over the ranks'
+        # slices leaves each rank its own heads (a reduce-scatter)
+        model = tp.model_group() if heads_split else None
+        out = _sdpa(q, cache["k"].to(dt), cache["v"].to(dt), mask, groups,
+                    heads_to=model if model in groups else None)
+        heads_split = heads_split and model not in groups
+    if heads_split:
+        c = tp.model_rank()
+        out = out[:, :, c * h_loc:(c + 1) * h_loc]
     return torch.einsum("bshe,hed->bsd", out, p["wo"].to(dt)), cache

@@ -14,7 +14,10 @@ import functools
 
 import numpy as np
 import torch
+import torch.distributed
 import torch.nn.functional as F
+
+from repro_torch.models import tp
 
 # --------------------------------------------------------------------------
 # init helpers
@@ -148,8 +151,10 @@ def init_embed(gen, vocab_padded, d_model, device):
 
 def apply_embed(p, tokens, dtype):
     # gather, then cast: the same values as casting the whole table first
-    # (the JAX order) without a vocab x d_model copy per call
-    return F.embedding(tokens, p["table"]).to(dtype)
+    # (the JAX order) without a vocab x d_model copy per call.  A mesh
+    # step's table is gathered whole for the lookup (its gradient
+    # reduce-scattered back)
+    return F.embedding(tokens, tp.whole(p["table"])).to(dtype)
 
 
 def init_lm_head(gen, d_model, vocab_padded, device):
@@ -157,10 +162,29 @@ def init_lm_head(gen, d_model, vocab_padded, device):
 
 
 def apply_lm_head(p, x, vocab_size):
+    """Logits of x; on a mesh step's leaf split over "model" on the
+    vocabulary, the rank's columns only (``vocab_parallel`` says which),
+    the padded vocabulary masked inside them."""
+    if tp.is_stored(p["w"]):
+        if not vocab_parallel(p):
+            tp.note_whole("head")
+            return apply_lm_head({"w": tp.whole(p["w"])}, x, vocab_size)
+        w = tp.local(p["w"])
+        logits = tp.into_model(x) @ w.to(x.dtype)
+        first = max(vocab_size - tp.model_rank() * w.shape[1], 0)
+        if first < w.shape[1]:
+            logits[..., first:] = torch.finfo(logits.dtype).min
+        return logits
     logits = x @ p["w"].to(x.dtype)
     if p["w"].shape[1] != vocab_size:  # mask padded vocab entries
         logits[..., vocab_size:] = torch.finfo(logits.dtype).min
     return logits
+
+
+def vocab_parallel(p) -> bool:
+    """Whether a head's weight is a mesh step's leaf whose vocabulary
+    "model" splits: its logits are then the rank's columns."""
+    return tp.is_stored(p["w"]) and tp.split_on(p["w"], 1)
 
 
 def cross_entropy_loss(logits, targets, vocab_size):
@@ -172,5 +196,32 @@ def cross_entropy_loss(logits, targets, vocab_size):
     lf = logits.to(torch.float32)
     logz = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, tgt[..., None].to(torch.int64))[..., 0]
+    nll = (logz - gold) * valid
+    return nll.sum() / torch.clamp(valid.sum(), min=1)
+
+
+def vocab_parallel_loss(logits, targets):
+    """``cross_entropy_loss`` of logits whose vocabulary is split over the
+    current mesh's "model" ranks (this rank's columns, rank-major, the
+    padded vocabulary already masked): the f32 logsumexp's max and sum
+    are reduced over "model", the gold logit comes from the rank that
+    owns it, and the mean runs over the valid targets (-1 masked).  On a
+    "model" axis of one rank, ``cross_entropy_loss`` itself."""
+    group = tp.model_group()
+    if group is None:
+        return cross_entropy_loss(logits, targets, None)
+    valid = targets >= 0
+    tgt = torch.where(valid, targets, torch.zeros_like(targets))
+    lf = logits.to(torch.float32)
+    n = lf.shape[-1]
+    first = tp.model_rank() * n
+    mx = lf.detach().amax(dim=-1, keepdim=True)
+    tp.all_reduce(mx, group, torch.distributed.ReduceOp.MAX)
+    total = tp.out_of_model(torch.exp(lf - mx).sum(dim=-1))
+    logz = mx[..., 0] + torch.log(total)
+    mine = (tgt >= first) & (tgt < first + n)
+    at = torch.clamp(tgt - first, 0, n - 1).to(torch.int64)
+    gold = tp.out_of_model(torch.gather(lf, -1, at[..., None])[..., 0]
+                           * mine)
     nll = (logz - gold) * valid
     return nll.sum() / torch.clamp(valid.sum(), min=1)

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.models import tp
 from repro_torch.models.attention import chunked_attention
 from repro_torch.models.layers import (apply_norm, apply_rope, dense_init,
                                        init_norm)
@@ -82,19 +83,22 @@ def init_mla_cache(batch, max_len, mla, dtype, device):
                                   dtype=dtype, device=device)}
 
 
-def mla_decode(p, x, cache, *, pos, mla, rope_theta):
+def mla_decode(p, x, cache, *, pos, mla, rope_theta, seq=None):
     """Absorbed-form one-token decode against the compressed cache.
     x: (B,1,D); pos: int.  The new latents are written at ``pos``
     (clamped into the cache, as ``dynamic_update_slice`` clamps), in
-    place.  Returns (out, cache)."""
+    place.  Returns (out, cache).  ``seq``: a mesh step's sequence slice
+    of the cache, as ``attention.attention_decode`` takes it."""
     dt = x.dtype
     pos_t = torch.full((1,), pos, dtype=torch.int64, device=x.device)
     q_nope, q_rope = _queries(p, x, pos_t, mla, rope_theta)   # (B,1,H,*)
     c_new, kr_new = _latents(p, x, pos_t, mla, rope_theta)
     smax = cache["c_kv"].shape[1]
-    at = min(max(pos, 0), smax - 1)
-    cache["c_kv"][:, at:at + 1] = c_new.to(cache["c_kv"].dtype)
-    cache["k_rope"][:, at:at + 1] = kr_new.to(cache["k_rope"].dtype)
+    groups, offset, length = seq or ((), 0, smax)
+    at = min(max(pos, 0), length - 1) - offset
+    if 0 <= at < smax:
+        cache["c_kv"][:, at:at + 1] = c_new.to(cache["c_kv"].dtype)
+        cache["k_rope"][:, at:at + 1] = kr_new.to(cache["k_rope"].dtype)
     c_kv, k_rope = cache["c_kv"].to(dt), cache["k_rope"].to(dt)
 
     # absorb W_uk into q: q_abs (B,1,H,r)
@@ -103,11 +107,12 @@ def mla_decode(p, x, cache, *, pos, mla, rope_theta):
     scores = (torch.einsum("bshr,btr->bhst", q_abs, c_kv) +
               torch.einsum("bshe,bte->bhst", q_rope, k_rope))
     scores = scores.to(torch.float32) * scale
-    t_pos = torch.arange(smax, device=x.device)
+    t_pos = torch.arange(smax, device=x.device) + offset
     scores = scores.masked_fill(~(t_pos <= pos)[None, None, None, :],
                                 torch.finfo(torch.float32).min)
-    probs = torch.softmax(scores, dim=-1).to(dt)
-    ctx = torch.einsum("bhst,btr->bshr", probs, c_kv)             # (B,1,H,r)
+    probs = tp.seq_softmax(scores, groups).to(dt)
+    ctx = tp.seq_sum(torch.einsum("bhst,btr->bshr", probs, c_kv),
+                     groups)                                      # (B,1,H,r)
     out = torch.einsum("bshr,rhe->bshe", ctx, p["w_uv"].to(dt))
     y = torch.einsum("bshe,hed->bsd", out, p["wo"].to(dt))
     return y, cache

@@ -21,11 +21,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import tp
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (apply_embed, apply_lm_head,
                                        apply_norm, cross_entropy_loss,
                                        embed_init, init_embed, init_lm_head,
-                                       init_norm, sinusoidal_table)
+                                       init_norm, sinusoidal_table,
+                                       vocab_parallel, vocab_parallel_loss)
 
 
 def init_params(cfg: ModelConfig, generator, device=None):
@@ -62,9 +64,17 @@ def _encoder_cfg(cfg):
 
 
 def _lm_head(p, cfg, x):
-    if cfg.tie_embeddings:
-        return x @ p["embed"]["table"].to(x.dtype).T
+    if cfg.tie_embeddings:          # a mesh step's table: gathered whole
+        return x @ tp.whole(p["embed"]["table"]).to(x.dtype).T
     return apply_lm_head(p["lm_head"], x, cfg.vocab_size)
+
+
+def _loss(p, cfg, logits, targets):
+    """``cross_entropy_loss``, or its vocabulary-parallel form where a
+    mesh step's head leaves each rank its own columns."""
+    if not cfg.tie_embeddings and vocab_parallel(p["lm_head"]):
+        return vocab_parallel_loss(logits, targets)
+    return cross_entropy_loss(logits, targets, cfg.vocab_size)
 
 
 def _pos_rows(table, offset, n):
@@ -77,7 +87,8 @@ def _pos_rows(table, offset, n):
 def _embed_tokens(p, cfg, tokens, dtype, offset=0):
     x = apply_embed(p["embed"], tokens, dtype)
     if cfg.pos_embedding == "learned":
-        x = x + _pos_rows(p["pos"]["table"], offset, tokens.shape[1]).to(dtype)
+        x = x + _pos_rows(tp.whole(p["pos"]["table"]), offset,
+                          tokens.shape[1]).to(dtype)
     return x
 
 
@@ -93,7 +104,8 @@ def run_encoder(p, cfg, enc_embeds, *, q_chunk=1024, run_cfg=None):
     x, _, _ = tf.apply_stack(p["encoder"]["stack"], x, ecfg,
                              positions=positions, causal=False,
                              q_chunk=q_chunk, run_cfg=run_cfg)
-    return apply_norm(p["encoder"]["final_norm"], x, cfg.norm_type)
+    return apply_norm(tp.whole_tree(p["encoder"]["final_norm"]), x,
+                      cfg.norm_type)
 
 
 def _assemble_inputs(p, cfg, batch, dtype):
@@ -130,11 +142,11 @@ def forward_loss(p, cfg: ModelConfig, batch, *, compute_dtype=torch.bfloat16,
                                cross=cfg.is_encdec, run_cfg=run_cfg,
                                flash_fn=flash_fn, gmm_fn=gmm_fn,
                                scan_fn=scan_fn, chunk_fn=chunk_fn)
-    x = apply_norm(p["final_norm"], x, cfg.norm_type)
+    x = apply_norm(tp.whole_tree(p["final_norm"]), x, cfg.norm_type)
     if n_prefix:
         x = x[:, n_prefix:]
     logits = _lm_head(p, cfg, x)
-    loss = cross_entropy_loss(logits, batch["targets"], cfg.vocab_size)
+    loss = _loss(p, cfg, logits, batch["targets"])
     return loss + aux.to(torch.float32), {"ce": loss, "aux": aux}
 
 
@@ -159,18 +171,21 @@ def init_cache(cfg: ModelConfig, batch, max_len, dtype=torch.bfloat16,
 
 
 def prefill(p, cfg: ModelConfig, batch, *, compute_dtype=torch.bfloat16,
-            q_chunk=1024):
+            q_chunk=1024, flash_fn=None, gmm_fn=None):
     """Full-sequence prefill on the reference path (chunked attention,
-    chunked Mamba scan, einsum experts, chunked mLSTM); returns
-    (last-token logits, caches): KV and latent caches seq-aligned with
-    the prompt (a VLM's patches included), Mamba and xLSTM states after
-    the prompt; an encoder-decoder's cross cache is the encoder's kv."""
+    chunked Mamba scan, einsum experts, chunked mLSTM) unless the flash
+    and ``moe_gmm`` hooks are given (the scan's and the mLSTM's kernels
+    return no state); returns (last-token logits, caches): KV and latent
+    caches seq-aligned with the prompt (a VLM's patches included), Mamba
+    and xLSTM states after the prompt; an encoder-decoder's cross cache
+    is the encoder's kv."""
     x, positions, enc_out, _ = _assemble_inputs(p, cfg, batch, compute_dtype)
     x, caches, _ = tf.apply_stack(p["stack"], x, cfg, positions=positions,
                                   causal=True, q_chunk=q_chunk,
                                   enc_out=enc_out, cross=cfg.is_encdec,
-                                  collect_cache=True)
-    x = apply_norm(p["final_norm"], x, cfg.norm_type)
+                                  collect_cache=True, flash_fn=flash_fn,
+                                  gmm_fn=gmm_fn)
+    x = apply_norm(tp.whole_tree(p["final_norm"]), x, cfg.norm_type)
     logits = _lm_head(p, cfg, x[:, -1:, :])
     return logits, caches
 
@@ -184,7 +199,7 @@ def decode_step(p, cfg: ModelConfig, caches, token, pos, *,
     pos = int(pos)
     x = _embed_tokens(p, cfg, token, compute_dtype, offset=pos)
     x, new_caches = tf.decode_stack(p["stack"], x, caches, cfg, pos=pos)
-    x = apply_norm(p["final_norm"], x, cfg.norm_type)
+    x = apply_norm(tp.whole_tree(p["final_norm"]), x, cfg.norm_type)
     logits = _lm_head(p, cfg, x)
     return logits, new_caches
 

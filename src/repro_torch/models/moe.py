@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import tp
 from repro_torch.models.layers import dense_init
 
 
@@ -84,12 +85,27 @@ def apply_moe(p, x, moe, ffn_type="swiglu", gmm_fn=None):
                 mesh, batch_axes(mesh))):
         y, aux = apply_moe_sharded(p, x, moe, ffn_type, mesh, gmm_fn=gmm_fn)
         return y + _shared_expert(p, x, ffn_type), aux
+    if tp.is_stored(p["router"]):        # a mesh step's leaves: all whole
+        tp.note_whole("moe")
+        p = {k: tp.whole(w) for k, w in p.items()}
     return _apply_moe_naive(p, x, moe, ffn_type, gmm_fn=gmm_fn)
 
 
 def _shared_expert(p, x, ffn_type):
+    """The shared experts' FFN; on a mesh step's leaves tensor-parallel
+    over "model" (its ``d_ff`` slice between f and g) where the rule
+    splits it, else whole."""
     if "shared_wi" not in p:
         return torch.zeros_like(x)
+    if tp.is_stored(p["shared_wi"]):
+        split = tp.split_on(p["shared_wi"], 1)
+        if not split:
+            tp.note_whole("moe")
+        get = tp.local if split else tp.whole
+        w = {k: get(p[k]) for k in ("shared_wi", "shared_wg", "shared_wo")
+             if k in p}
+        return tp.out_of_model(
+            _shared_expert(w, tp.into_model(x, split), ffn_type), split)
     dt = x.dtype
     B, S, D = x.shape
     xt = x.reshape(B * S, D)

@@ -35,7 +35,10 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import tp
 from repro_torch.models.moe import _expert_ffn
+from repro_torch.models.tp import IntoModel as _IntoModel
+from repro_torch.models.tp import OutOfModel as _OutOfModel
 from repro_torch.sharding_ctx import axis_names, mesh_shape, placements
 
 
@@ -87,34 +90,6 @@ class _AllToAllInt8(torch.autograd.Function):
         return _q_roundtrip(g, ctx.group), None
 
 
-class _IntoModel(torch.autograd.Function):
-    """Identity forward; backward sums the cotangent over ``group``."""
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
-
-
-class _OutOfModel(torch.autograd.Function):
-    """Sum over ``group`` forward (the F contraction's psum); identity
-    backward."""
-    @staticmethod
-    def forward(ctx, x, group):
-        y = x.clone()
-        dist.all_reduce(y, group=group)
-        return y
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
 class _Mean(torch.autograd.Function):
     """Mean over ``group``, forward and backward."""
     @staticmethod
@@ -148,9 +123,10 @@ def _local_weights(p, mesh):
     """The rank's (router, wi, wg, wo): the router whole, the experts'
     slice of the JAX in_specs — wi / wg ("data", None, "model"), wo
     ("data", "model", None).  A DTensor placed by
-    ``sharding.param_shardings`` holds exactly that slice (``to_local``);
-    a plain tensor holds every expert and is sliced by the rank's mesh
-    coordinates."""
+    ``sharding.param_shardings`` holds exactly that slice (``to_local``),
+    as does a mesh step's ``tp.Stored`` leaf (its local piece, the router
+    gathered by ``tp.whole``); a plain tensor holds every expert and is
+    sliced by the rank's mesh coordinates."""
     shape = mesh_shape(mesh)
     coord = dict(zip(axis_names(mesh), mesh.get_coordinate()))
     has_model = "model" in shape
@@ -159,12 +135,12 @@ def _local_weights(p, mesh):
         spec = ["data", None, None]
         if has_model:
             spec[f_dim] = "model"
-        if isinstance(w, DTensor):
+        if isinstance(w, (DTensor, tp.Stored)):
             want = placements(mesh, spec)
             if list(w.placements) != want:
                 raise ValueError(f"apply_moe_sharded: an expert weight placed "
                                  f"{w.placements}, expected {want}")
-            return w.to_local()
+            return tp.own(w)
         n_loc = w.shape[0] // shape["data"]
         w = w.narrow(0, coord["data"] * n_loc, n_loc)
         if has_model:
@@ -175,6 +151,7 @@ def _local_weights(p, mesh):
     router = p["router"]
     if isinstance(router, DTensor):
         router = router.full_tensor()
+    router = tp.whole(router)
     wi = expert(p["wi"], 2)
     wg = expert(p["wg"], 2) if "wg" in p else wi
     return router, wi, wg, expert(p["wo"], 1)

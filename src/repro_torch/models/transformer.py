@@ -16,6 +16,8 @@ chunked reference path, as in the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.utils.checkpoint
 
@@ -23,8 +25,10 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import tp
 from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import apply_ffn, apply_norm, init_ffn, init_norm
+from repro_torch.sharding_ctx import current_mesh, use_mesh
 
 _MIXERS = ("attn", "mamba", "mlstm", "slstm")
 
@@ -74,49 +78,58 @@ def init_subblock(gen, cfg, mixer, ffn, device, cross=False):
 
 def apply_subblock(p, x, cfg, mixer, ffn, *, positions, causal, q_chunk,
                    enc_out=None, cross=False, flash_fn=None, gmm_fn=None,
-                   scan_fn=None, chunk_fn=None):
-    """Full-sequence apply.  Returns (x, cache_seed, aux)."""
+                   scan_fn=None, chunk_fn=None, collect_cache=True):
+    """Full-sequence apply.  Returns (x, cache_seed, aux).  On a mesh
+    step's leaves (``tp.Stored``): GQA attention (and cross-attention)
+    and the dense FFN tensor-parallel over "model", the MoE through
+    ``apply_moe`` (the expert-parallel dispatch), MLA, Mamba, the mLSTM
+    and the sLSTM whole on every "model" rank (ROADMAP A14c); each leaf
+    is gathered here, inside the super-block's remat body.  On plain
+    tensors every ``tp`` helper returns its input."""
     _check_supported(mixer, ffn)
-    h = apply_norm(p["norm1"], x, cfg.norm_type)
+    h = apply_norm(tp.whole_tree(p["norm1"]), x, cfg.norm_type)
+    if mixer != "attn" or cfg.attention_type == "mla":
+        tp.note_whole("mla" if mixer == "attn" else mixer)
+        w = tp.whole_tree(p["mixer"])
     if mixer == "attn":
         if cfg.attention_type == "mla":
             y, (c_kv, k_rope) = mla_mod.mla_forward(
-                p["mixer"], h, positions=positions, mla=cfg.mla,
+                w, h, positions=positions, mla=cfg.mla,
                 rope_theta=cfg.rope_theta, q_chunk=q_chunk)
             seed = {"c_kv": c_kv, "k_rope": k_rope}
         else:
-            y, (k, v) = attn.attention_forward(
-                p["mixer"], h, positions=positions, causal=causal,
-                rope_theta=cfg.rope_theta,
+            y, seed = _attention_tp(
+                p["mixer"], h, cfg, "attn", collect_cache=collect_cache,
+                positions=positions, causal=causal, rope_theta=cfg.rope_theta,
                 use_rope=(cfg.pos_embedding == "rope"), qk_norm=cfg.qk_norm,
                 q_chunk=q_chunk, flash_fn=flash_fn)
-            seed = {"k": k, "v": v}
         if cross:
             x = x + y
-            hc = apply_norm(p["norm_cross"], x, cfg.norm_type)
-            y, (kc, vc) = attn.attention_forward(
-                p["cross"], hc, positions=positions, causal=False,
-                use_rope=False, q_chunk=q_chunk, x_cross=enc_out)
-            seed = {"self": seed, "cross": {"k": kc, "v": vc}}
+            hc = apply_norm(tp.whole_tree(p["norm_cross"]), x, cfg.norm_type)
+            y, cseed = _attention_tp(
+                p["cross"], hc, cfg, "cross", collect_cache=collect_cache,
+                x_cross=enc_out, positions=positions, causal=False,
+                use_rope=False, q_chunk=q_chunk)
+            seed = {"self": seed, "cross": cseed}
     elif mixer == "mamba":
-        y, (h_last, conv_last) = mb.mamba_forward(p["mixer"], h, cfg.mamba,
+        y, (h_last, conv_last) = mb.mamba_forward(w, h, cfg.mamba,
                                                   scan_fn=scan_fn)
         seed = {"h": h_last, "conv": conv_last}
     elif mixer == "mlstm":
-        y, seed = xl.mlstm_forward(p["mixer"], h, cfg.num_heads, cfg.xlstm,
+        y, seed = xl.mlstm_forward(w, h, cfg.num_heads, cfg.xlstm,
                                    chunk_fn=chunk_fn)
     else:
-        y, seed = xl.slstm_forward(p["mixer"], h, cfg.num_heads, cfg.xlstm)
+        y, seed = xl.slstm_forward(w, h, cfg.num_heads, cfg.xlstm)
     x = x + y
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if ffn == "dense":
-        x = x + apply_ffn(p["ffn"], apply_norm(p["norm2"], x, cfg.norm_type),
-                          cfg.ffn_type)
+        x = x + _ffn_tp(p["ffn"], apply_norm(tp.whole_tree(p["norm2"]), x,
+                                             cfg.norm_type), cfg)
     elif ffn == "moe":
-        y, aux = moe_mod.apply_moe(p["ffn"],
-                                   apply_norm(p["norm2"], x, cfg.norm_type),
-                                   cfg.moe, cfg.ffn_type, gmm_fn=gmm_fn)
+        y, aux = moe_mod.apply_moe(
+            p["ffn"], apply_norm(tp.whole_tree(p["norm2"]), x, cfg.norm_type),
+            cfg.moe, cfg.ffn_type, gmm_fn=gmm_fn)
         x = x + y
     return x, seed, aux
 
@@ -124,44 +137,101 @@ def apply_subblock(p, x, cfg, mixer, ffn, *, positions, causal, q_chunk,
 def apply_subblock_decode(p, x, state, cfg, mixer, ffn, *, pos):
     """One-token apply.  Returns (x, new_state); a KV or latent cache in
     ``state`` is written in place (an encoder-decoder's cross cache is
-    only read), a Mamba or xLSTM state is replaced."""
+    only read), a Mamba or xLSTM state is replaced.  On a mesh step's
+    leaves: parameters as ``apply_subblock`` takes them, each cache leaf
+    a ``tp.Stored`` piece used in place (attention and MLA caches
+    sequence-parallel, recurrent states the rank's rows); the new state
+    holds the local pieces."""
     _check_supported(mixer, ffn)
-    h = apply_norm(p["norm1"], x, cfg.norm_type)
-    if mixer == "attn":
+    h = apply_norm(tp.whole_tree(p["norm1"]), x, cfg.norm_type)
+    if mixer == "attn" and cfg.attention_type != "mla":
         self_state = state["self"] if "cross" in state else state
-        if cfg.attention_type == "mla":
-            y, new_state = mla_mod.mla_decode(
-                p["mixer"], h, self_state, pos=pos, mla=cfg.mla,
-                rope_theta=cfg.rope_theta)
-        else:
-            y, new_state = attn.attention_decode(
-                p["mixer"], h, self_state, pos=pos,
-                rope_theta=cfg.rope_theta,
-                use_rope=(cfg.pos_embedding == "rope"), qk_norm=cfg.qk_norm)
+        y, new_state = _attention_decode_tp(
+            p["mixer"], h, self_state, cfg, "attn", pos=pos,
+            rope_theta=cfg.rope_theta,
+            use_rope=(cfg.pos_embedding == "rope"), qk_norm=cfg.qk_norm)
         if "cross" in state:
             x = x + y
-            hc = apply_norm(p["norm_cross"], x, cfg.norm_type)
-            y, _ = attn.attention_decode(p["cross"], hc, state["cross"],
-                                         pos=pos, use_rope=False, cross=True)
-            new_state = {"self": new_state, "cross": state["cross"]}
-    elif mixer == "mamba":
-        y, new_state = mb.mamba_decode(p["mixer"], h, state, cfg.mamba)
-    elif mixer == "mlstm":
-        y, new_state = xl.mlstm_decode(p["mixer"], h, state, cfg.num_heads,
-                                       cfg.xlstm)
+            hc = apply_norm(tp.whole_tree(p["norm_cross"]), x, cfg.norm_type)
+            y, cross_state = _attention_decode_tp(
+                p["cross"], hc, state["cross"], cfg, "cross", pos=pos,
+                use_rope=False, cross=True)
+            new_state = {"self": new_state, "cross": cross_state}
     else:
-        y, new_state = xl.slstm_decode(p["mixer"], h, state, cfg.num_heads,
-                                       cfg.xlstm)
+        tp.note_whole("mla" if mixer == "attn" else mixer)
+        w = tp.whole_tree(p["mixer"])
+        local = {k: tp.own(v) for k, v in state.items()}
+        if mixer == "attn":
+            y, new_state = mla_mod.mla_decode(
+                w, h, local, pos=pos, mla=cfg.mla, rope_theta=cfg.rope_theta,
+                seq=tp.seq_split(state["c_kv"]))
+        elif mixer == "mamba":
+            y, new_state = mb.mamba_decode(w, h, local, cfg.mamba)
+        elif mixer == "mlstm":
+            y, new_state = xl.mlstm_decode(w, h, local, cfg.num_heads,
+                                           cfg.xlstm)
+        else:
+            y, new_state = xl.slstm_decode(w, h, local, cfg.num_heads,
+                                           cfg.xlstm)
     x = x + y
+    h2 = apply_norm(tp.whole_tree(p["norm2"]), x, cfg.norm_type) \
+        if ffn != "none" else None
     if ffn == "dense":
-        x = x + apply_ffn(p["ffn"], apply_norm(p["norm2"], x, cfg.norm_type),
-                          cfg.ffn_type)
+        x = x + _ffn_tp(p["ffn"], h2, cfg)
     elif ffn == "moe":
-        y, _ = moe_mod.apply_moe(p["ffn"],
-                                 apply_norm(p["norm2"], x, cfg.norm_type),
-                                 cfg.moe, cfg.ffn_type)
+        y, _ = moe_mod.apply_moe(p["ffn"], h2, cfg.moe, cfg.ffn_type)
         x = x + y
     return x, new_state
+
+
+# --------------------------------------------------------------------------
+# attention and the FFN on a mesh step's ranks (plain tensors: whole)
+# --------------------------------------------------------------------------
+
+def _attention_tp(p, h, cfg, kind, *, collect_cache, x_cross=None,
+                  **kwargs):
+    """``attention_forward`` on this rank's heads between f and g where
+    "model" splits them (whole otherwise); the cache seeds leave with
+    every kv head and the rank's slice of the sequence
+    (``tp.heads_to_seq``)."""
+    w, every = tp.attention_weights(p, cfg.num_heads, cfg.num_kv_heads)
+    split = every is not None
+    if not split:
+        tp.note_whole(kind)
+    if x_cross is not None:
+        x_cross = tp.into_model(x_cross, split)
+    y, (k, v) = attn.attention_forward(w, tp.into_model(h, split),
+                                       x_cross=x_cross, **kwargs)
+    if split and collect_cache:
+        k = tp.heads_to_seq(k, every, cfg.num_kv_heads)
+        v = tp.heads_to_seq(v, every, cfg.num_kv_heads)
+    return tp.out_of_model(y, split), {"k": k, "v": v}
+
+
+def _ffn_tp(p, h, cfg):
+    """``apply_ffn`` on this rank's ``d_ff`` slice between f and g where
+    "model" splits it (whole otherwise)."""
+    split = tp.split_on(p["wi"], 1)
+    if not split:
+        tp.note_whole("ffn")
+    w = {k: (tp.local if split else tp.whole)(v) for k, v in p.items()}
+    return tp.out_of_model(apply_ffn(w, tp.into_model(h, split),
+                                     cfg.ffn_type), split)
+
+
+def _attention_decode_tp(p, h, cache, cfg, kind, **kwargs):
+    """``attention_decode`` on this rank's heads where "model" splits them
+    (q and the new k / v gathered, the output's heads kept for ``wo``,
+    then g), against the rank's slice of the cache's sequence."""
+    w, every = tp.attention_weights(p, cfg.num_heads, cfg.num_kv_heads,
+                                    select=False)
+    split = every is not None
+    if not split:
+        tp.note_whole(kind)
+    local = {k: tp.own(v) for k, v in cache.items()}
+    y, _ = attn.attention_decode(w, h, local, seq=tp.seq_split(cache["k"]),
+                                 heads_split=split, **kwargs)
+    return tp.out_of_model(y, split), local
 
 
 def init_subblock_state(cfg, idx_def, batch, max_len, dtype, device,
@@ -210,8 +280,16 @@ def _remat(fn, run_cfg):
         return fn
 
     def remat_fn(*args):
-        return torch.utils.checkpoint.checkpoint(fn, *args,
-                                                 use_reentrant=False)
+        mesh = current_mesh()
+        if mesh is None:
+            return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                     use_reentrant=False)
+        # the recompute runs on the autograd engine's thread (a device's
+        # worker on the card), where the caller's thread-local mesh is
+        # not set: re-enter it there
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=lambda: (contextlib.nullcontext(), use_mesh(mesh)))
     return remat_fn
 
 
@@ -238,7 +316,7 @@ def apply_stack(stack_params, x, cfg, *, positions, causal=True, q_chunk=1024,
                 layer_p[f"b{i}"], x, cfg, m, f, positions=positions,
                 causal=causal, q_chunk=q_chunk, enc_out=enc_out, cross=cross,
                 flash_fn=flash_fn, gmm_fn=gmm_fn, scan_fn=scan_fn,
-                chunk_fn=chunk_fn)
+                chunk_fn=chunk_fn, collect_cache=collect_cache)
             aux = aux + a
         return x, (seeds if collect_cache else None), aux
 

@@ -57,14 +57,33 @@ def adamw_init(params):
     return state
 
 
+def sharded_norm(tree, counted, groups):
+    """``global_norm`` of a tree of shards: the f32 squares of the leaves
+    that ``counted`` marks (one rank of those holding the same piece
+    counts it, so each element is counted once), all-reduced over the
+    process ``groups`` that span the mesh."""
+    import torch.distributed as dist
+    ls = leaves(tree)
+    sq = torch.zeros((), dtype=F32, device=ls[0].device)
+    for x, c in zip(ls, counted):
+        if c:
+            sq = sq + torch.sum(torch.square(x.to(F32)))
+    for g in groups:
+        dist.all_reduce(sq, group=g)
+    return torch.sqrt(sq)
+
+
 @torch.no_grad()
 def adamw_update(grads, state, params, *, lr, beta1=0.9, beta2=0.95,
-                 eps=1e-8, weight_decay=0.1, grad_clip=1.0):
+                 eps=1e-8, weight_decay=0.1, grad_clip=1.0,
+                 norm_fn=global_norm):
     """One step: clip by the global norm, update the moments, decay the
     master copy (decoupled) and cast it back into each parameter's
     dtype.  Updates ``state`` and ``params`` in place; returns
-    (params, state, {"grad_norm", "lr"})."""
-    gnorm = global_norm(grads)
+    (params, state, {"grad_norm", "lr"}).  Every step is elementwise, so
+    the trees may be a rank's shards, with ``norm_fn`` the norm over the
+    mesh (``sharded_norm``)."""
+    gnorm = norm_fn(grads)
     scale = torch.clamp(grad_clip / (gnorm + 1e-9), max=1.0)
     step = state["step"] + 1
     c1 = 1.0 - beta1 ** step.to(F32)

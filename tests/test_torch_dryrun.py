@@ -20,8 +20,9 @@ mesh steps of ``launch/steps.py``) against the JAX package's, on the CPU.
     their caches placed by ``cache_shardings``;
   * ``python -m repro_torch.launch.dryrun`` on whisper-large-v3's
     decode_32k cell on the 256-rank fake mesh ends ``[OK]`` with a sane
-    result; its skip rule is the JAX package's; the MoE flags it cannot
-    honour raise and name ROADMAP A14b.
+    result; its skip rule is the JAX package's; the MoE flags configure
+    the expert-parallel dispatch of qwen3's decode_32k cell (int8 wire
+    bytes, local buffers), through the CLI and ``run_cell``.
 
 The port-side programs run in processes of their own, started together
 when the module starts (``tests/torch_dryrun_cells.py``).
@@ -345,15 +346,98 @@ def test_skip_rule_is_the_jax_one(capsys):
     assert capsys.readouterr().out.strip() == "[SKIP] yi-9b/long_500k/16x16"
 
 
+MOE_ARCH, MOE_SHAPE = "qwen3-moe-30b-a3b", "decode_32k"
+MOE_FLAGS = {"int8": ["--moe-quant", "int8"],
+             "local_cf": ["--moe-local-cf", "1.0"]}
+MOE_OVERRIDES = {"int8": {"dispatch_quant": "int8"},
+                 "local_cf": {"local_capacity_factor": 1.0}}
+RUN_CELL = """
+import json, sys
+from repro_torch.launch import dryrun as dr
+out = {k: dr.run_cell(sys.argv[1], sys.argv[2], device="cpu",
+                      moe_overrides=v)
+       for k, v in json.loads(sys.argv[3]).items()}
+json.dump(out, open(sys.argv[4], "w"))
+"""
+
+
+@pytest.fixture(scope="module")
+def moe_flag_runs(tmp_path_factory):
+    """qwen3's decode_32k cell on (16, 16) through the CLI without and
+    with each MoE flag, and through ``run_cell(moe_overrides=...)``, in
+    processes of their own, started together."""
+    d = tmp_path_factory.mktemp("moe_flags")
+    cli = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+           MOE_ARCH, "--shape", MOE_SHAPE, "--device", "cpu"]
+    started = {name: _start(cli + flags + ["--out", str(d / name)], ENV, d,
+                            name)
+               for name, flags in [("base", [])] + list(MOE_FLAGS.items())}
+    started["run_cell"] = _start(
+        [sys.executable, "-c", RUN_CELL, MOE_ARCH, MOE_SHAPE,
+         json.dumps(MOE_OVERRIDES), str(d / "run_cell.json")], ENV, d,
+        "run_cell")
+    out = {}
+    try:
+        for name, proc in started.items():
+            proc.communicate(timeout=600)
+            assert proc.returncode == 0, \
+                (d / f"{name}.stderr").read_text()[-4000:]
+        for name in ["base"] + list(MOE_FLAGS):
+            (out[name],) = json.loads(
+                (d / name / f"dryrun_{MOE_ARCH}_{MOE_SHAPE}_no.json")
+                .read_text())
+        out["run_cell"] = json.loads((d / "run_cell.json").read_text())
+    finally:
+        for proc in started.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    return out
+
+
 @pytest.mark.parametrize("flag", [["--moe-quant", "int8"],
                                   ["--moe-local-cf", "1.0"]])
-def test_moe_flags_raise_and_name_a14b(flag):
-    with pytest.raises(NotImplementedError, match="A14b"):
-        dr.main(["--arch", "qwen3-moe-30b-a3b", "--shape", "train_4k",
-                 "--device", "cpu"] + flag)
-    with pytest.raises(NotImplementedError, match="A14b"):
-        dr.run_cell("qwen3-moe-30b-a3b", "train_4k", device="cpu",
-                    moe_overrides={"dispatch_quant": "int8"})
+def test_moe_flags_configure_the_sharded_dispatch(moe_flag_runs, flag):
+    """The flags configure the expert-parallel dispatch that the mesh
+    steps run (until ROADMAP A14b they raised, naming it, while the
+    steps ran the naive dispatch; the test keeps its name): int8 shrinks each MoE layer's dispatch all-to-all
+    by the int8 wire format's count (1 byte an element and an f32 scale
+    a slot against 2 bytes an element); a local capacity factor of 1.0
+    shrinks the local expert buffers against 1.25, and with them the
+    grouped products.  ``run_cell(moe_overrides=...)`` gives the CLI's
+    counts."""
+    from repro_torch.models.moe_sharded import _round8
+
+    flag = next(k for k, v in MOE_FLAGS.items() if v == flag)
+    cfg = get_config(MOE_ARCH)
+    moe = cfg.moe
+    base, got = moe_flag_runs["base"], moe_flag_runs[flag]
+    assert base["status"] == got["status"] == "ok"
+    nd = nm = 16
+    layers = cfg.num_layers
+    tokens = SHAPES[MOE_SHAPE].global_batch // nd         # a rank's rows
+    c_send = _round8(tokens * moe.top_k / nd * moe.capacity_factor)
+    a2a = {r["counted"]["collective_bytes_by_kind"]["all-to-all"]
+           for r in (base, got)}
+    flops = (base["counted"]["dot_flops"], got["counted"]["dot_flops"])
+    if flag == "int8":
+        wire = nd * c_send * (cfg.d_model * (2 - 1) - 4)   # a layer
+        assert (base["counted"]["collective_bytes_by_kind"]["all-to-all"]
+                - got["counted"]["collective_bytes_by_kind"]["all-to-all"]
+                == layers * wire > 0)
+        assert flops[0] == flops[1]
+    else:
+        e_loc = moe.num_experts // nd
+        c_e = [_round8(nd * c_send / e_loc * f)
+               for f in (moe.local_capacity_factor, 1.0)]
+        assert c_e[1] < c_e[0]
+        gmm = 3 * 2 * e_loc * cfg.d_model * (moe.d_ff_expert // nm)
+        assert flops[0] - flops[1] == layers * gmm * (c_e[0] - c_e[1])
+        assert len(a2a) == 1
+        assert got["memory"]["temp_bytes"] <= base["memory"]["temp_bytes"]
+    via = moe_flag_runs["run_cell"][flag]
+    assert via["counted"] == got["counted"]
+    assert via["memory"] == got["memory"]
 
 
 def test_dry_run_needs_the_fake_backend_and_defaults_to_the_card(
