@@ -15,11 +15,13 @@ Phases (any failure raises and exits non-zero with no result line):
              allocator and advance exactly equal, bill within 1e-6
              relative; kernel and plain version timed with CUDA events;
   3. main    ``sweep(planning_grid(), range(17))`` at paper scale (1,020
-             lanes x 1,344 ticks) on each route of the engine, on the
-             same device and draws: "fused" (the default: one
-             campaign_sweep launch), "ops" (the eager tick loop through
-             the four per-op kernels, forced) and "plain"
-             (use_kernels=False): every fused lane's integer counters,
+             lanes x 1,344 ticks) on the "fused" route (the default: one
+             campaign_sweep launch), and on a cut grid (the first 4
+             seeds, 96 h: 240 lanes x 384 ticks; the eager routes' wall
+             follows the ticks) on "fused", "ops" (the eager tick loop
+             through the four per-op kernels, forced) and "plain"
+             (use_kernels=False), on the same device and draws: on the
+             cut grid every fused lane's integer counters,
              by_provider and events_fired equal both others', cost,
              accelerator hours and egress within 1e-5 relative; launch
              counts 1 on fused and 2N / N / N / N on ops; then the
@@ -32,7 +34,8 @@ Phases (any failure raises and exits non-zero with no result line):
   4. profile the device's busy share of a 24 h grid sweep at the same
              widths on the fused and the ops route (torch.profiler kernel
              time over wall time);
-  5. data    the data-plane golden spec at 64 seeds, the same checks as 3;
+  5. data    the data-plane golden spec at 64 seeds, the same checks as 3
+             (the cut grid: 4 seeds, 96 h);
   6. flash   the flash attention kernel against its plain version at the
              yi-9b shape (B=2, S=4096, H=32, Hkv=4, D=128, causal; and
              B=1, the f32 forward's), the edge shapes of
@@ -119,9 +122,8 @@ Phases (any failure raises and exits non-zero with no result line):
              wgmma route in bf16 and on the simt route in f32) and through
              the chunked reference path: finite loss within 2.0 of ln
              50304, kernel vs reference within 1e-2 (bf16) / 1e-4 (f32)
-             relative; tokens/s, peak memory, a profiled bf16 forward on
-             each path and a profiled f32 forward through the kernel (its
-             device busy time and the 21 simt launches);
+             relative; tokens/s, peak memory, one profiled forward (bf16,
+             through the kernel: its device busy time);
  15. xserved BatchServer(slots=4, max_len=128) on the xlstm weights, f32,
              8 requests as in 8, and the prefill-vs-decode check;
  16. train   the xlstm weights freed, the training path (the reference
@@ -245,10 +247,22 @@ Phases (any failure raises and exits non-zero with no result line):
              rank's vocabulary columns of the logits checked by shape
              (the fake group's all-to-all returns the rank's own send
              buffer, so that the dispatch's slot indices stay the
-             rank's).  Phase 6 gains the flash case at a rank's heads
+             rank's); c) in the same subprocess, rank 0 of (16, 16) on
+             real bf16 shards of jamba-v0.1-52b train_4k at full width,
+             cut to one super-block (8 of 32 layers), its Mamba split over
+             "model" (the rank's 512 of d_inner 8,192): a warm-up and a
+             timed step, ``max_memory_allocated``
+             within 15 % of the dry run of the same cut cell
+             (``artifacts/dryrun_torch/dryrun_jamba-v0.1-52b_train_4k_no_
+             8L.json``), dot FLOPs equal to its, no sub-block computed
+             whole; then its pallas mesh prefill, B=32 S=4096: flash 1
+             and ``moe_gmm`` 12 launches (4 ``moe_sharded`` calls).
+             Phase 6 gains the flash case at a rank's heads
              (``yi-9b-tp16``: B=2, S=4096, H=2, Hkv=1, D=128), phase 9
              the moe_gmm cases at a rank's experts (``qwen3-tp16-up`` /
-             ``-down``: E=8, C=12,800, D=2048, F=48 and back);
+             ``-down``: E=8, C=12,800, D=2048, F=48 and back;
+             ``jamba-tp16-up`` / ``-down``: E=1, C=25,600, D=4096, F=896
+             and back);
  24. report  a ``{"kernels": [...]}`` line (each entry with its route,
              "cuda", and "cuda_route", the kernel's route on the main path:
              "wgmma" or "simt"; flash attention and moe_gmm have one entry
@@ -258,8 +272,9 @@ Phases (any failure raises and exits non-zero with no result line):
              their launches on the ops route, and "campaign_sweep", the
              persistent kernel, with its time per sweep; flash
              attention's and moe_gmm's entries add "mesh_launches", their
-             launches in phase 23 b)'s mesh prefills on rank 0 of
-             (16, 16), and "one_rank_mesh_launches", phase 23 a)'s on a
+             launches in phase 23 b) and c)'s mesh prefills on rank 0 of
+             (16, 16), keyed by arch and depth, and
+             "one_rank_mesh_launches", phase 23 a)'s on a
              one-rank mesh, which is the plain step),
              the nvidia-smi line, and last
              ``{"ok": true, "device": {...}}``.
@@ -574,14 +589,35 @@ def check_kernels(dev, shapes) -> dict:
 # the per-op wrappers' launches on the "ops" route, per tick
 OPS_PER_TICK = {"campaign_preempt": 2, "campaign_match": 1,
                 "campaign_advance": 1, "campaign_bill": 1}
+# the eager routes' cut grid (``cut_grid``)
+CUT_SEEDS = 4
+CUT_HOURS = 96.0
 
 
-def drive(label, specs, seeds):
+def ticks_of(spec) -> int:
+    n_ticks, now = 0, 0.0              # the engines' float tick walk
+    while now < spec.duration_h:
+        n_ticks, now = n_ticks + 1, now + spec.dt_h
+    return n_ticks
+
+
+def cut_grid(specs, seeds):
+    """The grid the eager routes of ``drive`` run: the first CUT_SEEDS
+    seeds, each campaign cut to CUT_HOURS (their wall is ~294 launches a
+    tick from Python, so it follows the ticks, not the lanes)."""
+    return ([replace(s, duration_h=min(s.duration_h, CUT_HOURS))
+             for s in specs], seeds[:CUT_SEEDS])
+
+
+def drive(label, specs, seeds, cut=False):
     """One sweep on each route of the engine, same device and draws:
     "fused" (the default on the card: one campaign_sweep launch), "ops"
     (the eager tick loop through the per-op kernels, forced) and "plain"
     (use_kernels=False).  Launch counts are read around each kernel
-    route's run; every fused lane is compared with both others."""
+    route's run; every lane of "ops" and "plain" is compared with the
+    fused lane of the same grid.  With ``cut``, "ops" and "plain" run the
+    cut grid of ``cut_grid`` and the fused route runs both grids (the
+    full one timed); without, all three run the one grid."""
     from repro_torch.core.api import sweep
     from repro_torch.core.sweep_result import _prepare
     from repro_torch.kernels import ops
@@ -589,22 +625,22 @@ def drive(label, specs, seeds):
     keys = {repr(_prepare(s, 0)[0]) for s in specs}
     if len(keys) != 1:
         fail(f"{label}: specs span {len(keys)} engine batches, expected 1")
-    n_ticks, now = 0, 0.0              # the engines' float tick walk
-    while now < specs[0].duration_h:
-        n_ticks, now = n_ticks + 1, now + specs[0].dt_h
+    n_ticks = ticks_of(specs[0])
     lanes = len(specs) * len(seeds)
     zero = {name: 0 for name in ops.LAUNCHES}
+    e_specs, e_seeds = cut_grid(specs, seeds) if cut else (specs, seeds)
+    e_ticks, e_lanes = ticks_of(e_specs[0]), len(e_specs) * len(e_seeds)
 
-    def run(route):
+    def run(route, grid=(specs, seeds)):
         ops.reset_launches()
         split = {}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if route == "plain":
-            res = sweep(specs, seeds, use_kernels=False, timings=split)
+            res = sweep(*grid, use_kernels=False, timings=split)
         else:
             with ops._force_route("campaign_sweep", route):
-                res = sweep(specs, seeds, timings=split)
+                res = sweep(*grid, timings=split)
         torch.cuda.synchronize()
         return (res, time.perf_counter() - t0, dict(ops.LAUNCHES),
                 dict(ops.SWEEP_ROUTES), split)
@@ -614,18 +650,23 @@ def drive(label, specs, seeds):
             routes != {"campaign_sweep.fused": 1, "campaign_sweep.ops": 0}:
         fail(f"{label} fused: launches {launches}, routes {routes}; "
              "expected one campaign_sweep launch and no per-op launch")
-    by_ops, t_ops, launches_ops, routes_ops, _ = run("ops")
-    expect = {**zero, **{k: n * n_ticks for k, n in OPS_PER_TICK.items()}}
+    ref_rows = run("fused", (e_specs, e_seeds))[0].rows if cut else got.rows
+    by_ops, t_ops, launches_ops, routes_ops, _ = run("ops",
+                                                     (e_specs, e_seeds))
+    expect = {**zero, **{k: n * e_ticks for k, n in OPS_PER_TICK.items()}}
     if launches_ops != expect or routes_ops["campaign_sweep.ops"] != 1:
         fail(f"{label} ops: launches {launches_ops}, expected {expect}")
-    plain, t_plain, launches_plain, _, _ = run("plain")
+    plain, t_plain, launches_plain, _, _ = run("plain", (e_specs, e_seeds))
     if any(launches_plain.values()):
         fail(f"{label} plain: launches {launches_plain}")
 
-    if len(got.rows) != lanes:
-        fail(f"{label}: {len(got.rows)} rows for {lanes} lanes")
+    if len(got.rows) != lanes or len(ref_rows) != e_lanes:
+        fail(f"{label}: {len(got.rows)} / {len(ref_rows)} rows for "
+             f"{lanes} / {e_lanes} lanes")
     for other, name in ((by_ops, "ops"), (plain, "plain")):
-        for a, b in zip(got.rows, other.rows):
+        if len(other.rows) != e_lanes:
+            fail(f"{label} {name}: {len(other.rows)} rows for {e_lanes}")
+        for a, b in zip(ref_rows, other.rows):
             lane = (a["scenario"], a["seed"])
             for k in INT_COUNTERS:
                 if a[k] != b[k]:
@@ -644,17 +685,21 @@ def drive(label, specs, seeds):
             fail(f"{label} {(a['scenario'], a['seed'])}: empty campaign {a}")
     costs = [r["cost"] for r in got.rows]
 
-    def rate(t):
-        return (f"{t:.3f} s ({lanes / t:.1f} campaigns/s, "
-                f"{1e3 * t / n_ticks:.3f} ms/tick)")
+    def rate(t, n_lanes=lanes, ticks=n_ticks):
+        return (f"{t:.3f} s ({n_lanes / t:.1f} campaigns/s, "
+                f"{1e3 * t / ticks:.3f} ms/tick)")
+    eager = "" if not cut else \
+        f" (ops and plain on the cut grid: {e_lanes} lanes x {e_ticks} ticks)"
     log(f"[{label}] {lanes} lanes x {n_ticks} ticks: fused {rate(t_fused)}; "
-        f"ops {rate(t_ops)}; plain {rate(t_plain)}; cost "
+        f"ops {rate(t_ops, e_lanes, e_ticks)}; plain "
+        f"{rate(t_plain, e_lanes, e_ticks)}{eager}; cost "
         f"${min(costs):,.0f}..${max(costs):,.0f}; fused launches "
         f"{launches['campaign_sweep']}, ops launches "
         f"{ {k: launches_ops[k] for k in OPS_PER_TICK} }")
     return {"lanes": lanes, "ticks": n_ticks, "fused_s": t_fused,
             "ops_s": t_ops, "plain_s": t_plain, "launches": launches,
-            "launches_ops": launches_ops, "split": split}
+            "launches_ops": launches_ops, "split": split,
+            "eager_grid": (e_lanes, e_ticks)}
 
 
 def hot_spec():
@@ -1165,7 +1210,12 @@ GMM_CASES = [("jamba-up-c1280", 16, 1280, 4096, 14336),
              # F = 768 / 16 = 48, 12,800 slots (moe_sharded's local
              # capacity at factors 1.25 and 1.25)
              ("qwen3-tp16-up", 8, 12800, 2048, 48),
-             ("qwen3-tp16-down", 8, 12800, 48, 2048)]
+             ("qwen3-tp16-down", 8, 12800, 48, 2048),
+             # and in its jamba prefill (phase 23 c): 16 / 16 = 1 expert
+             # of F = 14336 / 16 = 896, 25,600 slots (16 ranks' 1,280
+             # sends at factor 1.25)
+             ("jamba-tp16-up", 1, 25600, 4096, 896),
+             ("jamba-tp16-down", 1, 25600, 896, 4096)]
 # (label, B, S, di, N, stream dtypes xc / dt / bm / cm or None for all
 # in the case's dtype): jamba's mixers at B=2 bf16 and B=1 f32, and the
 # edge shapes of tests/test_kernels.py
@@ -1589,8 +1639,8 @@ def xlstm_forward_phase(params, cfg, dev) -> dict:
     """forward_loss at full width and depth through the mlstm_chunk
     kernel (the resolver's hooks for attention_impl="pallas") and the
     chunked reference path, in bf16 (B=2) and f32 (B=1); per dtype the
-    losses, times and, from the kernel forward's profile, the launches
-    and device ms per mlstm_chunk call."""
+    losses, times and launches, and from the bf16 kernel forward's
+    profile (the only one) the device ms per mlstm_chunk call."""
     from repro_torch.configs import REDUCED_SHAPE, RunConfig
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import _resolve_kernels
@@ -1645,16 +1695,18 @@ def xlstm_forward_phase(params, cfg, dev) -> dict:
                 f"mlstm_chunk launches {launches['mlstm_chunk']} "
                 f"({ {k: n for k, n in routes.items() if n} }), peak "
                 f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
-            if dtype != torch.bfloat16 and label != "kernel":
-                continue                  # f32: the kernel forward's alone
-            prof = profile_forward(
-                lambda: forward_loss(params, cfg, batch,
-                                     compute_dtype=dtype, **kw),
-                secs[label], tag=f"xlstm {label} {str(dtype)[6:]}",
-                kernels=(MLSTM_KERNEL[route],))
-            if label == "kernel":
-                kern = {"launches": launches["mlstm_chunk"],
-                        "device_ms": prof[MLSTM_KERNEL[route]]}
+            if label != "kernel":
+                continue
+            # one profile, the bf16 kernel forward's: each of the ~220 k
+            # launches of the sLSTM step loop costs the profiler too
+            kern = {"launches": launches["mlstm_chunk"], "device_ms": None}
+            if dtype == torch.bfloat16:
+                prof = profile_forward(
+                    lambda: forward_loss(params, cfg, batch,
+                                         compute_dtype=dtype, **kw),
+                    secs[label], tag=f"xlstm {label} {str(dtype)[6:]}",
+                    kernels=(MLSTM_KERNEL[route],))
+                kern["device_ms"] = prof[MLSTM_KERNEL[route]]
         d = abs(losses["kernel"] - losses["reference"]) \
             / abs(losses["reference"])
         if d > rel:
@@ -2617,6 +2669,12 @@ def dryrun_phase(smi: str) -> dict:
 TP_STEPS = 3                   # trainer steps compared, one-rank mesh
 TP_LOGIT_TOL = 1e-4            # f32 prefill, kernels vs the reference path
 TP_ARTIFACT = "artifacts/dryrun_torch/dryrun_yi-9b_train_4k_no.json"
+# c) jamba train_4k cut to one super-block: ``python -m
+# repro_torch.launch.dryrun --arch jamba-v0.1-52b --shape train_4k
+# --layers 8 --device cpu --out artifacts/dryrun_torch``
+JAMBA_LAYERS = 8
+JAMBA_TP_ARTIFACT = ("artifacts/dryrun_torch/dryrun_jamba-v0.1-52b_train_4k_"
+                     f"no_{JAMBA_LAYERS}L.json")
 
 
 def _one_rank_mesh():
@@ -2826,15 +2884,18 @@ def rank0_state(cfg, mesh, dev, with_opt: bool = True):
     return params, opt, nbytes
 
 
-# b) the mesh prefills of rank 0 of (16, 16): (arch, the kernels'
-# launches expected at full depth); B=32 S=4096 global, 2 rows a rank
-TP16_PREFILLS = (("yi-9b", {"flash_attention": 48, "moe_gmm": 0}),
-                 ("qwen3-moe-30b-a3b", {"flash_attention": 48,
-                                        "moe_gmm": 3 * 48}))
+# b), c) the mesh prefills of rank 0 of (16, 16): (arch, layers (None:
+# full depth), the kernels' launches expected); B=32 S=4096 global, 2 rows
+# a rank
+TP16_PREFILLS = (("yi-9b", None, {"flash_attention": 48, "moe_gmm": 0}),
+                 ("qwen3-moe-30b-a3b", None, {"flash_attention": 48,
+                                              "moe_gmm": 3 * 48}),
+                 ("jamba-v0.1-52b", JAMBA_LAYERS, {"flash_attention": 1,
+                                                   "moe_gmm": 3 * 4}))
 TP16_BATCH = 32
 
 
-def tp_rank0_prefill(arch, expect, mesh, dev) -> dict:
+def tp_rank0_prefill(arch, layers, expect, mesh, dev) -> dict:
     """b) rank 0 of (16, 16): ``make_mesh_prefill_step`` with
     attention_impl="pallas" on the rank's real bf16 shards of ``arch``
     at full width and depth, B=32 S=4096 (2 rows a rank): flash on the
@@ -2850,6 +2911,8 @@ def tp_rank0_prefill(arch, expect, mesh, dev) -> dict:
     from repro_torch.launch import steps as st
 
     cfg = get_config(arch)
+    if layers:
+        cfg = replace(cfg, num_layers=layers)
     shape = ShapeConfig("tp16", 4096, TP16_BATCH, "prefill")
     run = RunConfig(model=cfg, shape=shape, attention_impl="pallas")
     params, _, args = rank0_state(cfg, mesh, dev, with_opt=False)
@@ -2866,6 +2929,8 @@ def tp_rank0_prefill(arch, expect, mesh, dev) -> dict:
     secs = time.perf_counter() - t0
     launches = {k: ops.LAUNCHES[k] for k in expect}
     return {"launches": launches, "expect": expect, "s": secs,
+            "depth": f"{cfg.num_layers} of "
+                     f"{get_config(arch).num_layers} layers",
             "argument_bytes": args,
             "logits_local": list(logits.to_local().shape),
             "whole": sorted(step.whole)}
@@ -2922,14 +2987,57 @@ def tp_rank0_part(out: str) -> int:
         one sends: the received slot indices stay in range."""
         out_.copy_(x)
     torch.distributed.all_to_all_single = a2a_own
-    prefill = {arch: tp_rank0_prefill(arch, expect, mesh, dev)
-               for arch, expect in TP16_PREFILLS}
+    jamba = tp_rank0_jamba(mesh, dev)
+    prefill = {arch: tp_rank0_prefill(arch, layers, expect, mesh, dev)
+               for arch, layers, expect in TP16_PREFILLS}
     Path(out).write_text(json.dumps({
         "dot_flops": int(fc.get_total_flops()), "peaks": peaks,
         "step_s": secs, "argument_bytes": args, "whole": whole,
         "model_flops_rank": model_flops(cfg, shape) / 256,
-        "prefill": prefill}))
+        "jamba": jamba, "prefill": prefill}))
     return 0
+
+
+def tp_rank0_jamba(mesh, dev) -> dict:
+    """c) rank 0 of (16, 16): jamba-v0.1-52b train_4k at full width, one
+    super-block (``JAMBA_LAYERS`` of 32 layers), 16 rows a rank,
+    grad_accum 8, remat, bf16 with the f32 master, on the rank's real
+    shards: a warm-up and a timed ``make_mesh_train_step`` step with
+    their ``max_memory_allocated``, then ``FlopCounterMode`` over one
+    more; the sub-blocks computed whole.  Torch's fake group moves no
+    data (its all-to-all the rank's own buffer, ``tp_rank0_part``)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.analysis.roofline import model_flops
+    from repro_torch.configs import RunConfig, get_config, get_shape
+    from repro_torch.data import make_batch
+    from repro_torch.launch import steps as st
+
+    cfg = replace(get_config("jamba-v0.1-52b"), num_layers=JAMBA_LAYERS)
+    shape = get_shape("train_4k")
+    run = RunConfig(model=cfg, shape=shape)
+    params, opt, args = rank0_state(cfg, mesh, dev)
+    step = st.make_mesh_train_step(cfg, run, mesh)
+    secs, peaks = [], []
+    for i in range(2):
+        batch = make_batch(cfg, shape, i, seed=7, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated())
+    batch = make_batch(cfg, shape, 2, seed=7, device=dev)
+    with FlopCounterMode(display=False) as fc:
+        step(params, opt, batch)
+    torch.cuda.synchronize()
+    whole = sorted(step.whole)
+    del params, opt, step, batch
+    torch.cuda.empty_cache()
+    return {"dot_flops": int(fc.get_total_flops()), "peaks": peaks,
+            "step_s": secs, "argument_bytes": args, "whole": whole,
+            "model_flops_rank": model_flops(cfg, shape) / 256}
 
 
 def leaves_of(tree) -> list:
@@ -2976,7 +3084,7 @@ def tp_phase(dev, smi: str) -> dict:
         proc = subprocess.run(
             [sys.executable, str(ROOT / "chip_smoke.py"), "--phase23",
              str(path)], cwd=ROOT, env=env, capture_output=True, text=True,
-            timeout=600)
+            timeout=900)
         if proc.returncode != 0:
             fail(f"tp b) exited {proc.returncode}: {proc.stderr[-3000:]}")
         b = json.loads(path.read_text())
@@ -3006,14 +3114,17 @@ def tp_phase(dev, smi: str) -> dict:
         f"{b['dot_flops'] / (step_s * PEAK_FLOPS):.4f}; whole over "
         f"\"model\": {b['whole'] or 'none'} ({b['wall_s']:.1f} s with the "
         f"process) | {smi}")
-    for arch, expect in TP16_PREFILLS:
+    jamba_check(b["jamba"], smi)
+    for arch, layers, expect in TP16_PREFILLS:
         pre = b["prefill"][arch]
         want_shape = [TP16_BATCH // 16, 1, padded_vocab(arch) // 16]
         if pre["launches"] != expect or pre["logits_local"] != want_shape:
             fail(f"tp b) rank 0 of (16, 16) {arch} mesh prefill: launches "
                  f"{pre['launches']} (want {expect}), local logits "
                  f"{pre['logits_local']} (want {want_shape})")
-        log(f"[tp] b) rank 0 of (16, 16), {arch} full width and depth, "
+        depth, part = ("and depth", "b)") if layers is None else \
+            (f"{layers} layers", "c)")
+        log(f"[tp] {part} rank 0 of (16, 16), {arch} full width {depth}, "
             f"make_mesh_prefill_step attention_impl=pallas, bf16 B=32 "
             f"S=4096 global (2 rows a rank; fake group: no value "
             f"compared): launches {pre['launches']} (counts 0 just before; "
@@ -3024,6 +3135,45 @@ def tp_phase(dev, smi: str) -> dict:
             f"{smi}")
     out["rank0"] = b
     return out
+
+
+def jamba_check(j, smi) -> None:
+    """c)'s gates: the peak within PEAK_TOL of the cut cell's dry run,
+    the dot FLOPs equal to its, no sub-block computed whole."""
+    from repro_torch.analysis.roofline import PEAK_FLOPS
+
+    predicted = json.loads((ROOT / JAMBA_TP_ARTIFACT).read_text())[0]
+    peak = max(j["peaks"][1:])
+    want_peak = predicted["memory"]["peak_bytes"]
+    rel = want_peak / peak - 1
+    want_flops = predicted["counted"]["dot_flops"]
+    if j["dot_flops"] != want_flops or abs(rel) > PEAK_TOL or j["whole"] \
+            or predicted["tp_whole"]:
+        fail(f"tp c) rank 0 of (16, 16) jamba {JAMBA_LAYERS} layers: dot "
+             f"FLOPs {j['dot_flops']} vs the dry run's {want_flops}; peak "
+             f"{peak / 1e9:.3f} GB vs predicted {want_peak / 1e9:.3f} GB "
+             f"({100 * rel:+.1f} %, tol {100 * PEAK_TOL:.0f} %); whole "
+             f"{j['whole']} (dry run {predicted['tp_whole']}), want none")
+    step_s = j["step_s"][-1]
+    log(f"[tp] c) rank 0 of (16, 16) on real tensors (fake group: no value "
+        f"compared), jamba-v0.1-52b train_4k full width, {JAMBA_LAYERS} of "
+        f"32 layers, 16 rows a rank, grad_accum 8, remat, bf16: arguments "
+        f"{j['argument_bytes'] / 1e9:.3f} GB; max_memory_allocated "
+        f"{[round(x / 1e9, 3) for x in j['peaks']]} GB, the cut cell's dry "
+        f"run {want_peak / 1e9:.3f} GB ({100 * rel:+.2f} %, tol "
+        f"{100 * PEAK_TOL:.0f} %); dot FLOPs {j['dot_flops']:.6e} (equal "
+        f"to the dry run's); step s {[round(x, 4) for x in j['step_s']]}, "
+        f"{step_s:.4f} s a step (the second); the rank's model FLOPs / "
+        f"(step s x {PEAK_FLOPS / 1e12:.1f} TFLOP/s) "
+        f"{j['model_flops_rank'] / (step_s * PEAK_FLOPS):.4f}, dot FLOPs "
+        f"{j['dot_flops'] / (step_s * PEAK_FLOPS):.4f}; whole over "
+        f"\"model\": none | {smi}")
+
+
+def tp16_key(arch, tp16) -> str:
+    """The kernels line's name of a rank-0 (16, 16) mesh prefill."""
+    return (f"{arch} prefill ({tp16[arch]['depth']}), rank 0 of "
+            f"(16, 16)")
 
 
 def padded_vocab(arch) -> int:
@@ -3067,7 +3217,7 @@ def main() -> int:
             f"{1e3 * k['plain_ms']:.2f} us; bound "
             f"{1e3 * k['bound_ms']:.3f} us by {k['bound_by']})")
 
-    main_run = drive("main", grid, list(range(17)))
+    main_run = drive("main", grid, list(range(17)), cut=True)
     sweep_kernel = check_sweep(dev, grid, list(range(17)))
     split = main_run["split"]
     log(f"[split] main, fused route: prepare {split['prepare']:.4f} s, "
@@ -3080,7 +3230,7 @@ def main() -> int:
                        list(range(17)), route)
     dp_spec = CampaignSpec.from_json(
         (ROOT / "tests" / "data" / "dataplane.spec.json").read_text())
-    drive("dataplane", [dp_spec], list(range(64)))
+    drive("dataplane", [dp_spec], list(range(64)), cut=True)
     log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
 
     flash = check_flash(dev)
@@ -3189,7 +3339,7 @@ def main() -> int:
          "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
          "launches": fwd["wgmma"]["launches"],
          "mesh_launches": {
-             f"{arch} prefill, rank 0 of (16, 16)": tp16[arch]["launches"][
+             tp16_key(arch, tp16): tp16[arch]["launches"][
                  "flash_attention"] for arch in tp16},
          "one_rank_mesh_launches": {
              "yi-9b prefill": tp["yi"]["bfloat16"]["launches"][
@@ -3205,8 +3355,9 @@ def main() -> int:
          "source": GMM_SOURCE, "replaces": GMM_REPLACES,
          "launches": hybrid["wgmma"]["launches"]["moe_gmm"],
          "mesh_launches": {
-             "qwen3-moe-30b-a3b prefill, rank 0 of (16, 16)": tp16[
-                 "qwen3-moe-30b-a3b"]["launches"]["moe_gmm"]},
+             tp16_key(arch, tp16): tp16[arch]["launches"][
+                 "moe_gmm"] for arch in tp16 if tp16[arch]["launches"][
+                     "moe_gmm"]},
          "one_rank_mesh_launches": {"qwen3 prefill": tp["qwen3"][
              "bfloat16"]["launches"]["moe_gmm"]},
          **{key: main_gmm[key] for key in keys}},

@@ -3,6 +3,7 @@
 
     python3 scripts/tp_mesh_check.py          # 4 cards of one host, NCCL
     python3 scripts/tp_mesh_check.py --cpu    # 4 gloo ranks, reduced archs
+    python3 scripts/tp_mesh_check.py --only jamba-v0.1-52b   # one case
 
 Spawns 4 ranks on a (2, 2) ("data", "model") mesh (``tcp://localhost``,
 a free port).  Every rank builds the same seeded weights and inputs,
@@ -18,6 +19,13 @@ step on its own shards, tensor-parallel over "model" (``models/tp.py``):
     the counts set to 0 just before) and "reference", in f32 and bf16;
     then 3 ``make_mesh_decode_step`` steps on the prefill's caches (the
     sequence split over "model") against ``make_decode_step``;
+  * jamba-v0.1-52b (8 of 32 layers: one super-block of 7 Mamba and 1
+    attention layers, 4 MoE), f32 only, B=2 at S=1024: the same prefill
+    and decode checks, Mamba split over "model" on ``d_inner`` (flash 1
+    and ``moe_gmm`` 12 launches).  Its 13.3 B weights are stored in bf16
+    (cast leaf by leaf after the init) and S is cut so that the plain
+    step's f32 expert buffers at capacity factor 8 (16 experts of d_ff
+    14,336) fit one card beside them;
   * yi-9b: 2 f32 ``make_mesh_train_step`` steps (B=2, S=4096, remat)
     against ``make_train_step``: loss and gradient norm.
 
@@ -56,9 +64,14 @@ TOL = 1e-4
 DECODE_STEPS = 3
 TRAIN_STEPS = 2
 # (arch, layers kept on the card, flash / moe_gmm launches a pallas
-# prefill makes on each rank at that depth)
-CASES = (("yi-9b", 4, {"flash_attention": 4, "moe_gmm": 0}),
-         ("qwen3-moe-30b-a3b", 8, {"flash_attention": 8, "moe_gmm": 24}))
+# prefill makes on each rank at that depth, compute dtypes, the weights'
+# dtype on the card, the sequence length on the card)
+CASES = (("yi-9b", 4, {"flash_attention": 4, "moe_gmm": 0},
+          ("float32", "bfloat16"), torch.float32, 4096),
+         ("qwen3-moe-30b-a3b", 8, {"flash_attention": 8, "moe_gmm": 24},
+          ("float32", "bfloat16"), torch.float32, 4096),
+         ("jamba-v0.1-52b", 8, {"flash_attention": 1, "moe_gmm": 12},
+          ("float32",), torch.bfloat16, 1024))
 
 
 def rel(got, want) -> float:
@@ -109,21 +122,35 @@ def config(arch, layers, cpu):
     return cfg
 
 
-def check_arch(arch, layers, expect, mesh, dev, cpu) -> dict:
+def cast_in_place(tree, dtype) -> None:
+    """Each float leaf of ``tree`` (nested dicts and lists) cast to
+    ``dtype`` in turn, so that one leaf's copy at a time sits beside the
+    originals."""
+    for k, v in list(tree.items() if isinstance(tree, dict)
+                     else enumerate(tree)):
+        if isinstance(v, (dict, list)):
+            cast_in_place(v, dtype)
+        elif v.is_floating_point():
+            tree[k] = v.to(dtype)
+
+
+def check_arch(arch, layers, expect, dtypes, store, seq, mesh, dev,
+               cpu) -> dict:
     from repro_torch import sharding as sh
     from repro_torch.configs import RunConfig, ShapeConfig
     from repro_torch.kernels import ops
     from repro_torch.launch import steps as st
     from repro_torch.models import init_params
-    from repro_torch.tree import leaves
 
     cfg = config(arch, layers, cpu)
-    B, S = (4, 16) if cpu else (2, 4096)
+    B, S = (4, 16) if cpu else (2, seq)
     coord = mesh.get_coordinate()[0]            # "data"
     n = mesh.mesh.shape[0]
     if cpu:
         expect = None               # the plain versions count no launch
     params = init_params(cfg, 2021, device=dev)
+    if not cpu and store != torch.float32:
+        cast_in_place(params, store)
     gen = torch.Generator(device=dev).manual_seed(9)
     tok = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
                         device=dev, dtype=torch.int32)
@@ -131,7 +158,7 @@ def check_arch(arch, layers, expect, mesh, dev, cpu) -> dict:
                         generator=gen, device=dev, dtype=torch.int32)
     V = cfg.vocab_size
     out = {}
-    for dt in ("float32", "bfloat16"):
+    for dt in dtypes:
         for impl in ("pallas", "reference"):
             run = RunConfig(model=cfg, shape=ShapeConfig("mesh", S, B,
                                                          "prefill"),
@@ -251,7 +278,7 @@ def check_train(cfg, params, mesh, dev, cpu) -> dict:
     return res
 
 
-def rank_main(rank, cpu, port, out_path):
+def rank_main(rank, cpu, port, out_path, cases):
     from repro_torch.sharding_ctx import make_mesh
     if cpu:
         torch.set_num_threads(1)
@@ -266,8 +293,7 @@ def rank_main(rank, cpu, port, out_path):
     try:
         mesh = make_mesh((2, 2), ("data", "model"), dev.type)
         t0 = time.perf_counter()
-        res = {arch: check_arch(arch, layers, expect, mesh, dev, cpu)
-               for arch, layers, expect in CASES}
+        res = {c[0]: check_arch(*c, mesh, dev, cpu) for c in cases}
         res["s"] = time.perf_counter() - t0
         Path(f"{out_path}.{rank}").write_text(json.dumps(res))
     finally:
@@ -283,6 +309,9 @@ def free_port() -> int:
 def main() -> int:
     import tempfile
     cpu = "--cpu" in sys.argv[1:]
+    only = sys.argv[sys.argv.index("--only") + 1] \
+        if "--only" in sys.argv[1:] else None
+    cases = [c for c in CASES if only in (None, c[0])]
     if not cpu:
         if torch.cuda.device_count() < WORLD:
             print(f"tp_mesh_check: needs {WORLD} cards "
@@ -292,12 +321,12 @@ def main() -> int:
         build.library()             # once, before the ranks load it
     with tempfile.TemporaryDirectory() as tmp:
         out = str(Path(tmp) / "rank")
-        mp.spawn(rank_main, args=(cpu, free_port(), out), nprocs=WORLD,
-                 join=True)
+        mp.spawn(rank_main, args=(cpu, free_port(), out, cases),
+                 nprocs=WORLD, join=True)
         ranks = [json.loads(Path(f"{out}.{r}").read_text())
                  for r in range(WORLD)]
-    ok = all(res[arch][key]["ok"] for res in ranks for arch, _, _ in CASES
-             for key in res[arch])
+    ok = all(res[c[0]][key]["ok"] for res in ranks for c in cases
+             for key in res[c[0]])
     if not cpu:
         import subprocess
         print(subprocess.run(

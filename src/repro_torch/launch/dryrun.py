@@ -195,10 +195,14 @@ def dry_run(cfg, shape, run, mesh_shape=(16, 16), device=None) -> dict:
 
 
 def run_cell(arch, shape_name, *, multi_pod=False, run_overrides=None,
-             moe_overrides=None, device=None):
+             moe_overrides=None, device=None, layers=None):
     """Dry-runs one production cell on (16, 16), or (2, 16, 16) with
-    ``multi_pod``; returns its result dict (JSON-serializable)."""
+    ``multi_pod``; returns its result dict (JSON-serializable).
+    ``layers``: the depth cut to that many layers (the cell's arch is
+    then recorded as ``ARCH@<layers>L``)."""
     cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     if moe_overrides and cfg.moe is not None:
         # e.g. {"dispatch_quant": "int8"} or {"local_capacity_factor": 1.0}
         cfg = dataclasses.replace(
@@ -213,7 +217,8 @@ def run_cell(arch, shape_name, *, multi_pod=False, run_overrides=None,
         run = run.replace(**run_overrides)
     r = dry_run(cfg, shape, run, (2, 16, 16) if multi_pod else (16, 16),
                 device)
-    r["arch"], r["shape"] = arch, shape_name
+    r["arch"] = f"{arch}@{layers}L" if layers else arch
+    r["shape"] = shape_name
     return r
 
 
@@ -230,6 +235,10 @@ def main(argv=None):
     ap.add_argument("--moe-quant", default=None, choices=("none", "int8"))
     ap.add_argument("--moe-local-cf", type=float, default=None)
     ap.add_argument("--grad-accum", type=int, default=None)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (a whole "
+                         "number of super-blocks; the JSON file and the "
+                         "cell's arch say so)")
     ap.add_argument("--device", default=None,
                     help="where the fake tensors and the mesh live: the "
                          "card unless told otherwise (cpu)")
@@ -272,7 +281,7 @@ def main(argv=None):
                 r = run_cell(arch, shape_name, multi_pod=mp,
                              run_overrides=overrides or None,
                              moe_overrides=moe_overrides or None,
-                             device=args.device)
+                             device=args.device, layers=args.layers)
                 results.append(r)
                 rf, m = r["roofline"], r["memory"]
                 print(f"[OK] {tag}  trace={r['trace_s']:.1f}s "
@@ -300,7 +309,8 @@ def main(argv=None):
         out = pathlib.Path(args.out)
         out.mkdir(parents=True, exist_ok=True)
         suffix = (args.arch or "all") + "_" + (args.shape or "all")
-        path = out / f"dryrun_{suffix}_{args.multi_pod}.json"
+        cut = f"_{args.layers}L" if args.layers else ""
+        path = out / f"dryrun_{suffix}_{args.multi_pod}{cut}.json"
         path.write_text(json.dumps(results, indent=1))
         print(f"wrote {path}")
     return 1 if failures else 0

@@ -298,27 +298,26 @@ def _microbatches(r: _Rank, batch, accum: int):
     """(the rank's rows of each of ``accum`` microbatches, whether the
     rows are split over the batch axes).  Microbatch i is rows [i B/a,
     (i+1) B/a) of the global batch, as the JAX step reshapes it, and the
-    rank takes its slice of them; a batch given as DTensors placed by
-    ``batch_shardings`` holds the rank's rows, cut into ``accum`` pieces
-    in order.  A batch the axes cannot divide runs whole on every
-    rank."""
+    rank takes its slice of them.  A batch given as DTensors placed by
+    ``batch_shardings`` holds the rank's slice of the whole batch, not
+    of each microbatch: with ``accum`` > 1 its rows are gathered first
+    (ROADMAP C15: an MoE's capacity and aux loss are taken per
+    microbatch, so other rows would give other values).  A batch the
+    axes cannot divide runs whole on every rank."""
     from torch.distributed.tensor import DTensor
     if any(isinstance(v, DTensor) for v in batch.values()):
-        rows, held = r.rows(batch)
-        split = held is r.batch_pl
-    else:
-        b = next(iter(batch.values())).shape[0]
-        split = b % (r.n * accum) == 0
-        rows = batch
-        if split and accum > 1:
-            per, sub = b // accum, b // accum // r.n
-            return [{k: v[i * per + r.idx * sub:i * per + (r.idx + 1) * sub]
-                     for k, v in batch.items()} for i in range(accum)], True
-        if split:
-            rows, _ = r.rows(batch)
-    n = next(iter(rows.values())).shape[0] // accum
-    return [{k: v[i * n:(i + 1) * n] for k, v in rows.items()}
-            for i in range(accum)], split
+        if accum == 1:
+            rows, held = r.rows(batch)
+            return [rows], held is r.batch_pl
+        batch = {k: r.full(v) for k, v in batch.items()}
+    b = next(iter(batch.values())).shape[0]
+    if b % (r.n * accum):
+        n = b // accum
+        return [{k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+                for i in range(accum)], False
+    per, sub = b // accum, b // accum // r.n
+    return [{k: v[i * per + r.idx * sub:i * per + (r.idx + 1) * sub]
+             for k, v in batch.items()} for i in range(accum)], True
 
 
 def _counted(r: _Rank, placements) -> bool:
@@ -492,7 +491,10 @@ def make_mesh_prefill_step(cfg: ModelConfig, run: RunConfig, mesh):
         if r.single:
             logits, caches = prefill(map_tree(tp.own, params), mb)
         else:
-            with use_mesh(mesh), tp.recording() as whole:
+            rows = [(g, r.size(a), r.coordinate(a))
+                    for a, g in r.batch_groups] if held is r.batch_pl else []
+            with use_mesh(mesh), tp.recording() as whole, \
+                    tp.whole_batch(rows), tp.row_parallel_glu():
                 logits, caches = M.prefill(
                     map_tree(tp.stored, params), cfg, mb, compute_dtype=dt,
                     q_chunk=run.attention_q_chunk, **hooks)
@@ -560,7 +562,8 @@ def make_mesh_decode_step(cfg: ModelConfig, run: RunConfig, mesh):
             logits, new = decode(map_tree(tp.own, params),
                                  map_tree(tp.own, caches), tok, pos)
         else:
-            with use_mesh(mesh), tp.recording() as whole, torch.no_grad():
+            with use_mesh(mesh), tp.recording() as whole, \
+                    tp.row_parallel_glu(), torch.no_grad():
                 logits, new = M.decode_step(
                     map_tree(tp.stored, params), cfg,
                     map_tree(tp.stored, caches),

@@ -200,7 +200,7 @@ def attention_decode(p, x, cache, *, pos, rope_theta=1e4, use_rope=True,
         q = apply_rope(q, pos_t, rope_theta)
     if heads_split:
         h_loc = q.shape[2]
-        q = tp.gather_heads(q)
+        q = tp.gather_model(q, 2)
 
     smax = cache["k"].shape[1]
     groups, offset, length = seq or ((), 0, smax)
@@ -214,7 +214,7 @@ def attention_decode(p, x, cache, *, pos, rope_theta=1e4, use_rope=True,
         if use_rope:
             k_new = apply_rope(k_new, pos_t, rope_theta)
         if k_new.shape[2] < cache["k"].shape[2]:
-            k_new, v_new = tp.gather_heads(k_new), tp.gather_heads(v_new)
+            k_new, v_new = (tp.gather_model(t, 2) for t in (k_new, v_new))
         at = min(max(pos, 0), length - 1) - offset
         if 0 <= at < smax:
             cache["k"][:, at:at + 1] = k_new.to(cache["k"].dtype)

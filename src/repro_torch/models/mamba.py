@@ -15,6 +15,13 @@ discretizes the whole sequence and calls ``scan_fn(x_conv, dt, Bm, Cm,
 A)`` in place of the chunk loop.  The kernel starts from a zero state
 and returns no final state, so that path serves the training forward
 only: it takes no ``h0`` and returns no ``h_last``.
+
+On a mesh step (``split``) a rank computes its slice of ``d_inner``, as
+the JAX package's compiled step splits the mixer: the in-projection
+column-parallel (``tp.halves`` sends each rank its slice of both x and
+z), the conv, the discretisation and the scan on the rank's channels,
+``w_x``'s (B, S, R+2N) product summed over "model", the out-projection
+row-parallel; ``rank_weights`` cuts the weights.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import tp
 from repro_torch.models.layers import dense_init
 
 
@@ -30,6 +38,31 @@ def mamba_dims(d_model, mcfg):
     d_inner = mcfg.expand * d_model
     dt_rank = mcfg.dt_rank or -(-d_model // 16)
     return d_inner, dt_rank
+
+
+def split_over_model(p, d_model, mcfg) -> bool:
+    """Whether a mesh step splits this mixer over "model" on ``d_inner``:
+    its in-projection stored column-parallel and "model" dividing
+    ``d_inner``, an even number of ranks or one (``tp.halves``; False
+    for plain tensors)."""
+    d_inner, _ = mamba_dims(d_model, mcfg)
+    m = tp.model_size()
+    return tp.split_on(p["w_in"], 1) and d_inner % m == 0 and \
+        (m == 1 or m % 2 == 0)
+
+
+def rank_weights(p, split: bool):
+    """The weights a rank computes with: its ``d_inner`` slice of every
+    leaf (``w_in``: its stored columns, exchanged after the product;
+    ``w_x`` and ``A_log``, whose rule splits another dim, through
+    ``tp.shared``), or all of them when not ``split``."""
+    if not split:
+        return tp.whole_tree(p)
+    by_dim = {"conv_w": 1, "conv_b": 0, "w_x": 0, "w_dt": 1, "dt_bias": 0,
+              "A_log": 0, "D": 0, "w_out": 0}
+    out = {k: tp.slice_of(p[k], d) for k, d in by_dim.items()}
+    out["w_in"] = tp.local(p["w_in"])
+    return out
 
 
 def init_mamba(gen, d_model, mcfg, device):
@@ -71,11 +104,14 @@ def _causal_conv(x, w, b, carry=None):
     return y + b, new_carry
 
 
-def _dt_b_c(p, x_conv, mcfg, dt_rank):
+def _dt_b_c(p, x_conv, mcfg, dt_rank, split=False):
     """The input-dependent SSM streams of x_conv (B,c,di): dt (B,c,di)
-    f32 after softplus, and Bm, Cm (B,c,N) in x_conv's dtype."""
+    f32 after softplus, and Bm, Cm (B,c,N) in x_conv's dtype.  ``split``:
+    x_conv holds the rank's channels, so ``w_x``'s product is summed over
+    "model" (g), and every rank's channels read the sum (f)."""
     dt_f = x_conv.dtype
     xdb = x_conv @ p["w_x"].to(dt_f)                         # (B,c,R+2N)
+    xdb = tp.into_model(tp.out_of_model(xdb, split), split)
     dt_raw, Bm, Cm = torch.split(
         xdb, [dt_rank, mcfg.d_state, mcfg.d_state], dim=-1)
     dt = F.softplus(
@@ -83,9 +119,9 @@ def _dt_b_c(p, x_conv, mcfg, dt_rank):
     return dt, Bm, Cm
 
 
-def _ssm_params(p, x_conv, mcfg, dt_rank):
+def _ssm_params(p, x_conv, mcfg, dt_rank, split=False):
     """Discretize: returns (A_bar, Bx, C) for a chunk. x_conv: (B,c,di)."""
-    dt, Bm, Cm = _dt_b_c(p, x_conv, mcfg, dt_rank)
+    dt, Bm, Cm = _dt_b_c(p, x_conv, mcfg, dt_rank, split)
     A = -torch.exp(p["A_log"])                               # (di,N)
     A_bar = torch.exp(dt[..., None] * A)                     # (B,c,di,N)
     Bx = (dt[..., None] * Bm[:, :, None, :].to(torch.float32)
@@ -108,14 +144,16 @@ def _scan_chunk(h0, A_bar, Bx):
 
 
 def mamba_forward(p, x, mcfg, *, chunk=256, h0=None, conv0=None,
-                  scan_fn=None):
+                  scan_fn=None, split=False):
     """x: (B,S,D) -> (y, (h_last, conv_last)).  Chunked over S, or one
-    ``scan_fn`` call over the whole sequence (then h_last is None)."""
+    ``scan_fn`` call over the whole sequence (then h_last is None).
+    ``split``: ``p`` is a rank's (``rank_weights``), and so are the
+    channels of h_last and conv_last."""
     B, S, D = x.shape
     dt = x.dtype
-    d_inner, dt_rank = mamba_dims(D, mcfg)
-    xz = x @ p["w_in"].to(dt)
-    x_in, z = xz.chunk(2, dim=-1)
+    _, dt_rank = mamba_dims(D, mcfg)
+    xz = tp.into_model(x, split) @ p["w_in"].to(dt)
+    x_in, z = tp.halves(xz, split)
     x_conv, conv_last = _causal_conv(x_in, p["conv_w"].to(dt),
                                      p["conv_b"].to(dt), conv0)
     x_conv = F.silu(x_conv)
@@ -124,27 +162,27 @@ def mamba_forward(p, x, mcfg, *, chunk=256, h0=None, conv0=None,
         if h0 is not None:
             raise ValueError("mamba_forward: scan_fn starts from a zero "
                              "state; an h0 needs the chunked path")
-        dts, Bm, Cm = _dt_b_c(p, x_conv, mcfg, dt_rank)
+        dts, Bm, Cm = _dt_b_c(p, x_conv, mcfg, dt_rank, split)
         y = scan_fn(x_conv, dts, Bm.contiguous(),
                     Cm.to(torch.float32).contiguous(), -torch.exp(p["A_log"]))
         h_last = None
     else:
         if h0 is None:
-            h0 = torch.zeros((B, d_inner, mcfg.d_state), dtype=torch.float32,
-                             device=x.device)
+            h0 = torch.zeros((B, x_conv.shape[-1], mcfg.d_state),
+                             dtype=torch.float32, device=x.device)
         c = min(chunk, S)
         if S % c:
             c = S  # fallback: single chunk
         h_last, ys = h0, []
         for i in range(S // c):
             A_bar, Bx, Cm = _ssm_params(p, x_conv[:, i * c:(i + 1) * c],
-                                        mcfg, dt_rank)
+                                        mcfg, dt_rank, split)
             h_all, h_last = _scan_chunk(h_last, A_bar, Bx)
             ys.append(torch.einsum("bcdn,bcn->bcd", h_all, Cm).to(dt))
         y = torch.cat(ys, dim=1)
     y = y + x_conv * p["D"].to(dt)
     y = y * F.silu(z)
-    return y @ p["w_out"].to(dt), (h_last, conv_last)
+    return tp.out_of_model(y @ p["w_out"].to(dt), split), (h_last, conv_last)
 
 
 def init_mamba_state(batch, d_model, mcfg, dtype, device):
@@ -155,19 +193,26 @@ def init_mamba_state(batch, d_model, mcfg, dtype, device):
                                 dtype=dtype, device=device)}
 
 
-def mamba_decode(p, x, state, mcfg):
-    """One-token step. x: (B,1,D).  Returns (y, new state)."""
+def mamba_decode(p, x, state, mcfg, split=False):
+    """One-token step. x: (B,1,D).  Returns (y, new state).  ``split``:
+    ``p`` is a rank's (``rank_weights``); the state holds every channel
+    (the rules store it whole over "model"): the rank steps its slice,
+    and the new slices are gathered over "model"."""
     B, _, D = x.shape
     dt = x.dtype
-    d_inner, dt_rank = mamba_dims(D, mcfg)
+    _, dt_rank = mamba_dims(D, mcfg)
     xz = x @ p["w_in"].to(dt)
-    x_in, z = xz.chunk(2, dim=-1)
-    x_conv, conv_new = _causal_conv(x_in, p["conv_w"].to(dt),
-                                    p["conv_b"].to(dt), state["conv"])
+    x_in, z = tp.halves(xz, split)
+    x_conv, conv_new = _causal_conv(
+        x_in, p["conv_w"].to(dt), p["conv_b"].to(dt),
+        tp.model_slice(state["conv"], 2, split))
     x_conv = F.silu(x_conv)
-    A_bar, Bx, Cm = _ssm_params(p, x_conv, mcfg, dt_rank)    # (B,1,di,N)
-    h = state["h"] * A_bar[:, 0] + Bx[:, 0]
+    A_bar, Bx, Cm = _ssm_params(p, x_conv, mcfg, dt_rank,
+                                split)                       # (B,1,di,N)
+    h = tp.model_slice(state["h"], 1, split) * A_bar[:, 0] + Bx[:, 0]
     y = torch.einsum("bdn,bn->bd", h, Cm[:, 0])[:, None, :].to(dt)
     y = y + x_conv * p["D"].to(dt)
     y = y * F.silu(z)
-    return y @ p["w_out"].to(dt), {"h": h, "conv": conv_new}
+    return (tp.out_of_model(y @ p["w_out"].to(dt), split),
+            {"h": tp.gather_model(h, 1, split),
+             "conv": tp.gather_model(conv_new, 2, split)})

@@ -29,6 +29,7 @@ computes exactly what it computed before.
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
 import weakref
 
@@ -265,6 +266,121 @@ def split_on(leaf, dim) -> bool:
 
 
 # --------------------------------------------------------------------------
+# a compute split that differs from the stored split
+# --------------------------------------------------------------------------
+
+def slice_of(leaf, dim):
+    """The rank's slice along ``dim`` of a leaf that a tensor-parallel
+    region reads split over "model" along ``dim``: its stored piece
+    (``local``) where the rule splits it there; else all of it through
+    ``shared`` (the gradient summed over "model": each rank adds its
+    slice's) cut to the rank's slice.  A plain tensor as it is."""
+    if not is_stored(leaf):
+        return leaf
+    if split_on(leaf, dim):
+        return local(leaf)
+    return shared(leaf).chunk(model_size(), dim=dim)[model_rank()]
+
+
+def model_slice(x, dim, on: bool = True):
+    """The rank's slice of ``x`` along ``dim`` over "model" (no
+    collective; ``x`` itself when ``on`` is false or the axis has one
+    rank)."""
+    m = model_size() if on else 1
+    return x if m == 1 else x.chunk(m, dim=dim)[model_rank()]
+
+
+class Columns:
+    """Products ``x @ w`` of one input ``x``, each whole (every output
+    column) on every "model" rank.  ``region``: the products' consumers
+    are a tensor-parallel region (each rank's cotangent is its share),
+    so every product takes x through f, a product whose weight the rule
+    splits on its output dim is column-parallel with its slices gathered
+    over "model" (the cotangent reduce-scattered), and another reads its
+    weight through ``shared``.  Otherwise the consumers are whole on
+    every rank, and each product reads its weight whole.  On plain
+    tensors, ``x @ w``."""
+
+    def __init__(self, x, region: bool):
+        self.x, self.region, self.xm = x, region, None
+
+    def __call__(self, w):
+        dt = self.x.dtype
+        if not self.region:
+            return self.x @ whole(w).to(dt)
+        if self.xm is None:
+            self.xm = into_model(self.x)
+        if is_stored(w) and split_on(w, 1):
+            return gather_model(self.xm @ local(w).to(dt), -1)
+        return self.xm @ shared(w).to(dt)
+
+
+def gather_model(x, dim, on: bool = True, summed: bool = True):
+    """The "model" ranks' slices of an activation joined along ``dim``
+    (``x`` itself when ``on`` is false or the axis has one rank).  The
+    backward reduce-scatters the cotangent (``summed``: each rank's
+    consumers saw only their share) or cuts the rank's slice from it
+    (every rank computed all of it)."""
+    group = model_group() if on else None
+    if group is None:
+        return x
+    return _Gather.apply(x, ((group, model_size(), model_rank(),
+                              dim % x.dim(), summed),))
+
+
+@functools.lru_cache(maxsize=None)
+def _halves_plan(width, m, c):
+    """(the columns rank ``c`` sends each rank, the columns it receives
+    from each) of ``halves``: ``width`` columns of [x | z] a rank, ``m``
+    ranks, an even number, so that no rank's columns straddle x and z
+    and each rank's go out in their order.  Column j of [x | z] goes to
+    the rank whose slice of its half holds it; what a rank receives, in
+    source order, is its x slice, then its z slice."""
+    half = width * m // 2
+    part = half // m
+
+    def dest(r):
+        return [(j % half) // part for j in range(r * width, (r + 1) * width)]
+    mine = dest(c)
+    return ([mine.count(j) for j in range(m)],
+            [dest(s).count(c) for s in range(m)])
+
+
+class _Halves(torch.autograd.Function):
+    """The all-to-all of ``halves``; backward the reverse exchange."""
+
+    @staticmethod
+    def forward(ctx, xz, group, sends, recvs):
+        ctx.args = (group, sends, recvs)
+        send = xz.movedim(-1, 0).contiguous()
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, recvs, sends, group=group)
+        return recv.movedim(0, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, sends, recvs = ctx.args
+        gt = g.movedim(-1, 0).contiguous()
+        back = torch.empty_like(gt)
+        dist.all_to_all_single(back, gt, sends, recvs, group=group)
+        return back.movedim(0, -1), None, None, None
+
+
+def halves(xz, on: bool = True):
+    """(x, z) of the product ``xz`` of a column-parallel ``[x | z]``
+    projection: each half cut to the rank's slice.  The rule splits the
+    concatenated dim, so on two ranks rank 0 holds all of x and rank 1
+    all of z; an all-to-all over "model" sends each rank its slice of
+    both (an even number of "model" ranks).  Plain (``on`` false, or one
+    rank): ``xz.chunk(2, -1)``."""
+    group = model_group() if on else None
+    if group is None:
+        return xz.chunk(2, dim=-1)
+    sends, recvs = _halves_plan(xz.shape[-1], model_size(), model_rank())
+    return _Halves.apply(xz, group, sends, recvs).chunk(2, dim=-1)
+
+
+# --------------------------------------------------------------------------
 # Megatron's f and g over "model"
 # --------------------------------------------------------------------------
 
@@ -307,6 +423,72 @@ def out_of_model(x, on: bool = True):
     """Megatron's g over the current mesh's "model" axis."""
     group = model_group() if on else None
     return OutOfModel.apply(x, group) if group is not None else x
+
+
+# --------------------------------------------------------------------------
+# rows over the batch axes
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def whole_batch(steps):
+    """``with whole_batch(steps):`` -- the enclosed compute holds the
+    rank's rows of a batch split over ``steps`` ((group, size,
+    coordinate) of each batch axis of more than one rank, outermost
+    first), and ``gather_batch`` / ``own_batch`` move between them and
+    every row.  The JAX package's compiled mesh prefill runs the
+    mLSTM's cell and the sLSTM's GLU of the rank's heads on every row
+    of the batch (it splits their projections' contraction over "data"
+    instead), and the port's mesh prefill does the same inside this
+    context."""
+    prev = getattr(_state, "rows", None)
+    _state.rows = tuple(steps)
+    try:
+        yield
+    finally:
+        _state.rows = prev
+
+
+def gather_batch(x, on: bool = True):
+    """Every row of ``x`` (dim 0, in the global order) inside
+    ``whole_batch``; ``x`` itself elsewhere or when ``on`` is false.
+    Forward only: the mesh prefill takes no gradient."""
+    for group, n, _ in reversed(getattr(_state, "rows", None) or ()
+                                if on else ()):
+        x = all_gather(x, group, n, 0)
+    return x
+
+
+def own_batch(x, on: bool = True):
+    """The rank's rows of ``x`` (every row, dim 0) inside
+    ``whole_batch``; ``x`` itself elsewhere or when ``on`` is false."""
+    steps = getattr(_state, "rows", None) if on else None
+    if not steps:
+        return x
+    idx, n = 0, 1
+    for _, size, c in steps:
+        idx, n = idx * size + c, n * size
+    r = x.shape[0] // n
+    return x[idx * r:(idx + 1) * r]
+
+
+@contextlib.contextmanager
+def row_parallel_glu():
+    """``with row_parallel_glu():`` -- the enclosed compute takes the
+    sLSTM GLU's up-projections row-parallel over "model" where the
+    sLSTM runs on the rank's heads, as the JAX package's compiled mesh
+    prefill and decode steps compute them; outside it (the mesh train
+    step) they read their weights whole, as its train step does."""
+    prev = getattr(_state, "glu_rows", False)
+    _state.glu_rows = True
+    try:
+        yield
+    finally:
+        _state.glu_rows = prev
+
+
+def glu_rows() -> bool:
+    """Whether the compute is inside ``row_parallel_glu``."""
+    return getattr(_state, "glu_rows", False)
 
 
 # --------------------------------------------------------------------------
@@ -418,14 +600,6 @@ def heads_to_seq(x, every, num_kv_heads):
 # --------------------------------------------------------------------------
 # the sequence split of a decode cache
 # --------------------------------------------------------------------------
-
-def gather_heads(x):
-    """(B, S, h, D) pieces of the "model" ranks' heads -> every head."""
-    group = model_group()
-    if group is None:
-        return x
-    return all_gather(x, group, model_size(), 2)
-
 
 def seq_split(leaf):
     """(groups, offset, length) of a decode cache leaf's sequence dim

@@ -80,23 +80,22 @@ def apply_subblock(p, x, cfg, mixer, ffn, *, positions, causal, q_chunk,
                    enc_out=None, cross=False, flash_fn=None, gmm_fn=None,
                    scan_fn=None, chunk_fn=None, collect_cache=True):
     """Full-sequence apply.  Returns (x, cache_seed, aux).  On a mesh
-    step's leaves (``tp.Stored``): GQA attention (and cross-attention)
-    and the dense FFN tensor-parallel over "model", the MoE through
-    ``apply_moe`` (the expert-parallel dispatch), MLA, Mamba, the mLSTM
-    and the sLSTM whole on every "model" rank (ROADMAP A14c); each leaf
-    is gathered here, inside the super-block's remat body.  On plain
+    step's leaves (``tp.Stored``) every mixer and the dense FFN split
+    over "model" as the JAX package's compiled step splits them: GQA
+    attention (and cross-attention) on the rank's heads, MLA on its
+    heads (its down-projections column-parallel) where the rule splits
+    them, Mamba on the rank's slice of ``d_inner``, the mLSTM and the
+    sLSTM on the rank's heads where "model" divides them, each of these
+    whole on every rank otherwise (its weights gathered); the MoE
+    through ``apply_moe`` (the expert-parallel dispatch); each leaf is
+    gathered here, inside the super-block's remat body.  On plain
     tensors every ``tp`` helper returns its input."""
     _check_supported(mixer, ffn)
     h = apply_norm(tp.whole_tree(p["norm1"]), x, cfg.norm_type)
-    if mixer != "attn" or cfg.attention_type == "mla":
-        tp.note_whole("mla" if mixer == "attn" else mixer)
-        w = tp.whole_tree(p["mixer"])
     if mixer == "attn":
         if cfg.attention_type == "mla":
-            y, (c_kv, k_rope) = mla_mod.mla_forward(
-                w, h, positions=positions, mla=cfg.mla,
-                rope_theta=cfg.rope_theta, q_chunk=q_chunk)
-            seed = {"c_kv": c_kv, "k_rope": k_rope}
+            y, seed = _mla_tp(p["mixer"], h, cfg, positions=positions,
+                              q_chunk=q_chunk)
         else:
             y, seed = _attention_tp(
                 p["mixer"], h, cfg, "attn", collect_cache=collect_cache,
@@ -112,14 +111,11 @@ def apply_subblock(p, x, cfg, mixer, ffn, *, positions, causal, q_chunk,
                 use_rope=False, q_chunk=q_chunk)
             seed = {"self": seed, "cross": cseed}
     elif mixer == "mamba":
-        y, (h_last, conv_last) = mb.mamba_forward(w, h, cfg.mamba,
-                                                  scan_fn=scan_fn)
-        seed = {"h": h_last, "conv": conv_last}
-    elif mixer == "mlstm":
-        y, seed = xl.mlstm_forward(w, h, cfg.num_heads, cfg.xlstm,
-                                   chunk_fn=chunk_fn)
+        y, seed = _mamba_tp(p["mixer"], h, cfg, scan_fn=scan_fn,
+                            collect_cache=collect_cache)
     else:
-        y, seed = xl.slstm_forward(w, h, cfg.num_heads, cfg.xlstm)
+        y, seed = _xlstm_tp(p["mixer"], h, cfg, mixer, chunk_fn=chunk_fn,
+                            collect_cache=collect_cache)
     x = x + y
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -158,21 +154,21 @@ def apply_subblock_decode(p, x, state, cfg, mixer, ffn, *, pos):
                 use_rope=False, cross=True)
             new_state = {"self": new_state, "cross": cross_state}
     else:
-        tp.note_whole("mla" if mixer == "attn" else mixer)
-        w = tp.whole_tree(p["mixer"])
         local = {k: tp.own(v) for k, v in state.items()}
         if mixer == "attn":
+            _mla_heads(p["mixer"])
             y, new_state = mla_mod.mla_decode(
-                w, h, local, pos=pos, mla=cfg.mla, rope_theta=cfg.rope_theta,
-                seq=tp.seq_split(state["c_kv"]))
+                p["mixer"], h, local, pos=pos, mla=cfg.mla,
+                rope_theta=cfg.rope_theta, seq=tp.seq_split(state["c_kv"]))
         elif mixer == "mamba":
-            y, new_state = mb.mamba_decode(w, h, local, cfg.mamba)
-        elif mixer == "mlstm":
-            y, new_state = xl.mlstm_decode(w, h, local, cfg.num_heads,
-                                           cfg.xlstm)
+            split = _mamba_split(p["mixer"], cfg)
+            y, new_state = mb.mamba_decode(mb.rank_weights(p["mixer"], split),
+                                           h, local, cfg.mamba, split=split)
         else:
-            y, new_state = xl.slstm_decode(w, h, local, cfg.num_heads,
-                                           cfg.xlstm)
+            split = _xlstm_split(p["mixer"], cfg, mixer)
+            decode = xl.mlstm_decode if mixer == "mlstm" else xl.slstm_decode
+            y, new_state = decode(p["mixer"], h, local, cfg.num_heads,
+                                  cfg.xlstm, split=split)
     x = x + y
     h2 = apply_norm(tp.whole_tree(p["norm2"]), x, cfg.norm_type) \
         if ffn != "none" else None
@@ -206,6 +202,74 @@ def _attention_tp(p, h, cfg, kind, *, collect_cache, x_cross=None,
         k = tp.heads_to_seq(k, every, cfg.num_kv_heads)
         v = tp.heads_to_seq(v, every, cfg.num_kv_heads)
     return tp.out_of_model(y, split), {"k": k, "v": v}
+
+
+def _mla_heads(p) -> bool:
+    """Whether the rule splits MLA's heads (``mla.heads_split``); MLA
+    recorded whole where it does not."""
+    heads = mla_mod.heads_split(p)
+    if not heads:
+        tp.note_whole("mla")
+    return heads
+
+
+def _mla_tp(p, h, cfg, *, positions, q_chunk):
+    """``mla_forward`` as the rules split it (``models/mla.py``); the
+    latents that seed the cache are whole on every "model" rank."""
+    _mla_heads(p)
+    y, (c_kv, k_rope) = mla_mod.mla_forward(
+        p, h, positions=positions, mla=cfg.mla, rope_theta=cfg.rope_theta,
+        q_chunk=q_chunk)
+    return y, {"c_kv": c_kv, "k_rope": k_rope}
+
+
+def _mamba_split(p, cfg) -> bool:
+    """``mamba.split_over_model``; Mamba recorded whole where it is
+    not split."""
+    split = mb.split_over_model(p, cfg.d_model, cfg.mamba)
+    if not split:
+        tp.note_whole("mamba")
+    return split
+
+
+def _mamba_tp(p, h, cfg, *, scan_fn, collect_cache):
+    """``mamba_forward`` on the rank's slice of ``d_inner`` where the
+    rules split the mixer (whole otherwise); the cache seeds leave with
+    every channel (gathered over "model")."""
+    split = _mamba_split(p, cfg)
+    y, (h_last, conv_last) = mb.mamba_forward(
+        mb.rank_weights(p, split), h, cfg.mamba, scan_fn=scan_fn,
+        split=split)
+    if split and collect_cache:
+        h_last = tp.gather_model(h_last, 1)
+        conv_last = tp.gather_model(conv_last, 2)
+    return y, {"h": h_last, "conv": conv_last}
+
+
+def _xlstm_split(p, cfg, mixer):
+    """The mLSTM's or sLSTM's split (``xlstm.mlstm_split`` /
+    ``slstm_split``); the mixer recorded whole where it is not split."""
+    split = (xl.mlstm_split if mixer == "mlstm" else xl.slstm_split)(
+        p, cfg.num_heads)
+    if split is None:
+        tp.note_whole(mixer)
+    return split
+
+
+def _xlstm_tp(p, h, cfg, mixer, *, chunk_fn, collect_cache):
+    """``mlstm_forward`` / ``slstm_forward`` as the rules split them; the
+    cache seeds leave with every head (gathered over "model")."""
+    split = _xlstm_split(p, cfg, mixer)
+    if mixer == "mlstm":
+        y, seed = xl.mlstm_forward(p, h, cfg.num_heads, cfg.xlstm,
+                                   chunk_fn=chunk_fn, split=split)
+    else:
+        y, seed = xl.slstm_forward(p, h, cfg.num_heads, cfg.xlstm,
+                                   split=split)
+    if split == "heads" and collect_cache:
+        seed = {k: v if k == "conv" or v is None else tp.gather_model(v, 1)
+                for k, v in seed.items()}
+    return y, seed
 
 
 def _ffn_tp(p, h, cfg):

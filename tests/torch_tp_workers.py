@@ -33,6 +33,17 @@ the test file holds what it writes to the JAX package.
     PYTHONPATH=src python tests/torch_tp_workers.py --dry OUT.json ARCH...
 
 runs the dry-run cases in this process (``dry``).
+
+    PYTHONPATH=src python tests/torch_tp_workers.py --mixers INPUTS.npz DIR
+    PYTHONPATH=src python tests/torch_tp_workers.py --dry-mixers OUT.json
+
+are the programs of ``tests/test_torch_tp_mixers.py``: the 4 ranks'
+"train" cases of ``MIXER_TRAIN_ARCHS``, ``UNDIVIDED_ARCHS`` and
+``C15_ARCH`` (also fed its batches as DTensors placed by
+``batch_shardings``, "c15"), the "steps" cases of ``MIXER_STEP_ARCHS``
+and ``UNDIVIDED_ARCHS``, and unit checks of ``tp.halves`` and
+``tp.slice_of``; and the (2, 2) dot FLOPs of
+``FLOPS_ARCHS`` (``dry_mixers``).
 """
 import dataclasses
 import os
@@ -53,7 +64,22 @@ TRAIN_ARCHS = ("yi-9b", "minitron-8b", "whisper-large-v3", "internvl2-2b",
 STEP_ARCHS = ("qwen3-moe-30b-a3b", "whisper-large-v3", "internvl2-2b",
               "minicpm3-4b", "yi-9b-mqa")
 MQA = "-mqa"
+# "...-1h": one head (and one kv head), which "model" cannot split: the
+# mLSTM, the sLSTM and MLA run whole on every "model" rank
+ONE_HEAD = "-1h"
 HOOK_ARCHS = ("yi-9b", "qwen3-moe-30b-a3b")
+# the mixers that the mesh steps split over "model" like the reference
+# (``tests/test_torch_tp_mixers.py``): train parity, prefill / decode
+MIXER_TRAIN_ARCHS = ("xlstm-350m", "minicpm3-4b", "kimi-k2-1t-a32b")
+MIXER_STEP_ARCHS = ("jamba-v0.1-52b", "xlstm-350m")
+# their undivided-heads forms, against the plain steps only
+UNDIVIDED_ARCHS = ("xlstm-350m-1h", "minicpm3-4b-1h")
+C15_ARCH = "qwen3-moe-30b-a3b"
+# the (2, 2) dot-FLOP cells (bf16, remat off): archs, and the (global
+# batch, seq_len) of each kind
+FLOPS_ARCHS = ("jamba-v0.1-52b", "xlstm-350m", "minicpm3-4b",
+               "kimi-k2-1t-a32b")
+FLOPS_SIZES = {"train": (8, 128), "prefill": (8, 64), "decode": (8, 64)}
 BATCH, SEQ, ACCUM, STEPS = 8, 16, 2, 3
 STEP_BATCH, STEP_SEQ, DECODE_STEPS = 4, 16, 3
 LOSS_SHAPE, LOSS_VOCAB = (2, 8, 64), 50   # (B, S, padded vocab), vocab
@@ -64,9 +90,11 @@ def config(arch):
     an MoE's capacity factor 8, so that no rank's dispatch drops a token
     (every path keeps all)."""
     from repro_torch.configs import get_reduced
-    cfg = get_reduced(arch.removesuffix(MQA))
+    cfg = get_reduced(arch.removesuffix(MQA).removesuffix(ONE_HEAD))
     if arch.endswith(MQA):
         cfg = dataclasses.replace(cfg, num_kv_heads=1)
+    if arch.endswith(ONE_HEAD):
+        cfg = dataclasses.replace(cfg, num_heads=1, num_kv_heads=1)
     if cfg.moe is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=8.0))
@@ -111,7 +139,8 @@ def _full(tree):
     return map_tree(lambda t: t.full_tensor().detach(), tree)
 
 
-def _train(inp, out, meshes):
+def _train(inp, out, meshes, archs=TRAIN_ARCHS, batch_fn=None,
+           prefix="train"):
     from repro_torch import sharding as sh
     from repro_torch.configs import RunConfig, ShapeConfig
     from repro_torch.launch import steps as st
@@ -120,7 +149,7 @@ def _train(inp, out, meshes):
 
     rank = dist.get_rank()
     for mkey, mesh in meshes.items():
-        for arch in TRAIN_ARCHS:
+        for arch in archs:
             cfg = config(arch)
             shape = ShapeConfig("tp", SEQ, BATCH, "train", grad_accum=ACCUM)
             run = RunConfig(model=cfg, shape=shape, compute_dtype="float32")
@@ -137,13 +166,14 @@ def _train(inp, out, meshes):
             do = _distribute(opt, sh.opt_shardings(opt, mesh), mesh)
             step = st.make_mesh_train_step(cfg, run, mesh)
             plain = st.make_train_step(cfg, run)
-            key = f"train/{mkey}/{arch}"
+            key = f"{prefix}/{mkey}/{arch}"
             m_mesh, m_plain = [], []
             for i in range(STEPS):
                 batch = {k.split("/")[-1]: torch.from_numpy(v)
                          for k, v in inp.items()
                          if k.startswith(f"{arch}/step{i}/")}
-                _, _, m = step(dp, do, batch)
+                _, _, m = step(dp, do, batch_fn(batch, mesh) if batch_fn
+                               else batch)
                 m_mesh.append((float(m["loss"]), float(m["grad_norm"])))
                 if rank == 0:
                     _, _, m = plain(params, opt, batch)
@@ -162,7 +192,7 @@ def _train(inp, out, meshes):
                 out.update(_flat(f"{key}/plain_nu/", opt["nu"]))
 
 
-def _steps(out, meshes):
+def _steps(out, meshes, archs=STEP_ARCHS):
     from repro_torch import sharding as sh
     from repro_torch.configs import RunConfig, ShapeConfig
     from repro_torch.launch.steps import (make_decode_step,
@@ -186,7 +216,7 @@ def _steps(out, meshes):
                                               flatten(shardings)))
 
     for mkey, mesh in meshes.items():
-        for arch in STEP_ARCHS:
+        for arch in archs:
             cfg = config(arch)
             shape = ShapeConfig("steps", STEP_SEQ, STEP_BATCH, "prefill")
             run = RunConfig(model=cfg, shape=shape, compute_dtype="float32")
@@ -376,7 +406,89 @@ def _trainer(out, mesh, work):
         out.update(_flat("trainer/plain/", tp_.params))
 
 
-def _rank(rank, inputs, out_dir):
+def _batch_dtensors(batch, mesh):
+    """``batch`` as DTensors placed by ``sharding.batch_shardings``."""
+    from repro_torch import sharding as sh
+    return _distribute(batch, sh.batch_shardings(batch, mesh), mesh)
+
+
+def _halves(out, mesh):
+    """``tp.halves`` on the (2, 2) mesh: each "model" rank's stored
+    columns of a column-parallel [x | z] product (B, S, 2 d) -> its
+    slice of x and of z, and the gradient of its columns for seeded
+    cotangents of x and z."""
+    from repro_torch.models import tp
+    from repro_torch.sharding_ctx import use_mesh
+
+    g = torch.Generator().manual_seed(13)
+    xz = torch.randn(2, 3, 16, generator=g)
+    gx, gz = torch.randn(2, 3, 8, generator=g), torch.randn(2, 3, 8,
+                                                           generator=g)
+    with use_mesh(mesh):
+        m, c = tp.model_size(), tp.model_rank()
+        mine = xz.chunk(m, -1)[c].clone().requires_grad_(True)
+        x, z = tp.halves(mine)
+        ((x * gx.chunk(m, -1)[c]).sum()
+         + (z * gz.chunk(m, -1)[c]).sum()).backward()
+    want_x, want_z = xz.chunk(2, -1)
+    out["units/halves"] = np.float64(max(
+        float((x - want_x.chunk(m, -1)[c]).abs().max()),
+        float((z - want_z.chunk(m, -1)[c]).abs().max())))
+    out["units/halves_grad"] = np.float64(float(
+        (mine.grad - torch.cat([gx, gz], -1).chunk(m, -1)[c]).abs().max()))
+
+
+def _shared_slice(out, mesh):
+    """``tp.slice_of`` on a leaf the rule splits on another dim than the
+    compute's (Mamba's ``A_log``: rows over "data", columns over
+    "model"; the compute takes the rank's rows over "model"): the
+    gradient of the rank's stored piece for a loss summed over the
+    ranks, against the plain gradient; and what ``tp.whole`` then a
+    slice would give (it takes the rank's columns of a gradient that
+    only the rank's rows hold)."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.models import tp
+    from repro_torch.sharding_ctx import use_mesh
+
+    g = torch.Generator().manual_seed(17)
+    w = torch.randn(8, 6, generator=g)
+    cot = torch.randn(8, 6, generator=g)
+    pl = (Shard(0), Shard(1))
+    with use_mesh(mesh):
+        v = tp.view()
+        d, c = v.coordinate("data"), v.coordinate("model")
+        m = v.size("model")
+        local = w.chunk(v.size("data"), 0)[d].chunk(m, 1)[c].clone()
+        grads = {}
+        for how in ("shared", "whole"):
+            leaf = local.clone().requires_grad_(True)
+            st = tp.Stored(leaf, pl, w.shape)
+            rows = tp.slice_of(st, 0) if how == "shared" else \
+                tp.whole(st).chunk(m, 0)[c]
+            (rows * cot.chunk(m, 0)[c]).sum().backward()
+            grads[how] = leaf.grad
+    # every rank adds its rows' share: the plain gradient of the sum over
+    # the 4 ranks is cot for each of the 2 "data" ranks
+    want = (2 * cot).chunk(v.size("data"), 0)[d].chunk(m, 1)[c]
+    out["units/shared_slice_grad"] = np.float64(
+        float((grads["shared"] - want).abs().max()))
+    out["units/whole_slice_grad"] = np.float64(
+        float((grads["whole"] - want).abs().max()))
+
+
+def _mixers(inp, out, meshes):
+    """The cases of ``tests/test_torch_tp_mixers.py``."""
+    _train(inp, out, meshes,
+           MIXER_TRAIN_ARCHS + (C15_ARCH,) + UNDIVIDED_ARCHS)
+    _train(inp, out, meshes, (C15_ARCH,), batch_fn=_batch_dtensors,
+           prefix="c15")
+    _steps(out, meshes, MIXER_STEP_ARCHS + UNDIVIDED_ARCHS)
+    _halves(out, meshes["d2m2"])
+    _shared_slice(out, meshes["d2m2"])
+
+
+def _rank(rank, inputs, out_dir, mode="all"):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{out_dir}/store",
                             rank=rank, world_size=WORLD)
@@ -385,22 +497,25 @@ def _rank(rank, inputs, out_dir):
         inp = dict(np.load(inputs))
         meshes = {k: make_mesh(s, n, "cpu") for k, (s, n) in MESHES.items()}
         out = {}
-        _train(inp, out, meshes)
-        _steps(out, meshes)
-        _hooks(out, meshes["d2m2"])
-        _loss(inp, out, meshes["d2m2"])
-        _remat_elsewhere(out, meshes["d2m2"])
-        _trainer(out, meshes["d2m2"], out_dir)
+        if mode == "mixers":
+            _mixers(inp, out, meshes)
+        else:
+            _train(inp, out, meshes)
+            _steps(out, meshes)
+            _hooks(out, meshes["d2m2"])
+            _loss(inp, out, meshes["d2m2"])
+            _remat_elsewhere(out, meshes["d2m2"])
+            _trainer(out, meshes["d2m2"], out_dir)
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
     finally:
         dist.destroy_process_group()
 
 
-def spawn(inputs, out_dir):
+def spawn(inputs, out_dir, mode="all"):
     store = os.path.join(out_dir, "store")     # a file store starts empty
     if os.path.exists(store):
         os.remove(store)
-    mp.spawn(_rank, args=(inputs, out_dir), nprocs=WORLD, join=True)
+    mp.spawn(_rank, args=(inputs, out_dir, mode), nprocs=WORLD, join=True)
 
 
 def dry(path, archs):
@@ -438,10 +553,37 @@ def dry(path, archs):
         json.dump(out, f)
 
 
+def dry_mixers(path):
+    """The per-device dot FLOPs and the sub-blocks computed whole of the
+    port's dry runs of ``FLOPS_ARCHS`` on (2, 2), reduced, bf16, remat
+    off: train, prefill and decode at ``FLOPS_SIZES``."""
+    import json
+
+    from repro_torch.configs import RunConfig, ShapeConfig, get_reduced
+    from repro_torch.launch import dryrun as dr
+
+    out = {}
+    for arch in FLOPS_ARCHS:
+        cfg = get_reduced(arch)
+        for kind, (b, s) in FLOPS_SIZES.items():
+            shape = ShapeConfig(kind, seq_len=s, global_batch=b, kind=kind)
+            r = dr.dry_run(cfg, shape, RunConfig(model=cfg, shape=shape,
+                                                 remat=False), (2, 2), "cpu")
+            out[f"{arch}/{kind}"] = {"dot_flops": r["counted"]["dot_flops"],
+                                     "tp_whole": r["tp_whole"]}
+    with open(path, "w") as f:
+        json.dump(out, f)
+
+
 if __name__ == "__main__":
     if sys.argv[1] == "--dry":
         dry(sys.argv[2], sys.argv[3:])
+    elif sys.argv[1] == "--dry-mixers":
+        dry_mixers(sys.argv[2])
     else:
+        mode = "all"
+        if sys.argv[1] == "--mixers":
+            mode, sys.argv = "mixers", sys.argv[1:]
         inputs, out_dir = sys.argv[1:3]
         os.makedirs(out_dir, exist_ok=True)
-        spawn(inputs, out_dir)
+        spawn(inputs, out_dir, mode)
