@@ -263,7 +263,24 @@ Phases (any failure raises and exits non-zero with no result line):
              ``-down``: E=8, C=12,800, D=2048, F=48 and back;
              ``jamba-tp16-up`` / ``-down``: E=1, C=25,600, D=4096, F=896
              and back);
- 24. report  a ``{"kernels": [...]}`` line (each entry with its route,
+ 24. examples the examples' counterparts on the card, each part's wall
+             printed: a) ``examples/quickstart_torch.py``'s ``main``: the
+             campaign half (two ``run`` calls: 2 campaign_sweep launches,
+             counted from 0 just before), its spec's JSON line count and
+             fired timeline held to the JAX example's (the budget floor's
+             data-driven hour within 2 h, cost and GPU-days within the
+             statistical bands), 200 train steps of reduced yi-9b (the
+             last loss below the first), ``restore`` at step 200, 6
+             requests served, 72 tokens; then ``python -m
+             repro_torch.campaigns run tests/data/paper_replay.spec.json``
+             in-process (1 launch) and its JSON payload; b)
+             ``examples/serve_overlay_torch.py``: its two lines equal the
+             JAX example's byte for byte; c)
+             ``examples/elastic_cloud_train_torch.py`` on a world of one
+             NCCL rank it makes itself (pods (1, 1), at most one): 30
+             finite losses, the fleet, spend ($530) and ledger lines equal
+             to the JAX example's, the rebuild count reported;
+ 25. report  a ``{"kernels": [...]}`` line (each entry with its route,
              "cuda", and "cuda_route", the kernel's route on the main path:
              "wgmma" or "simt"; flash attention and moe_gmm have one entry
              per route, the simt one, "flash_attention.simt",
@@ -275,7 +292,8 @@ Phases (any failure raises and exits non-zero with no result line):
              launches in phase 23 b) and c)'s mesh prefills on rank 0 of
              (16, 16), keyed by arch and depth, and
              "one_rank_mesh_launches", phase 23 a)'s on a
-             one-rank mesh, which is the plain step),
+             one-rank mesh, which is the plain step; campaign_sweep's
+             adds "examples_launches", phase 24's),
              the nvidia-smi line, and last
              ``{"ok": true, "device": {...}}``.
 
@@ -287,6 +305,7 @@ Exits 2 without a card or without the repository's ``src/`` beside it.
 """
 from __future__ import annotations
 
+import ast
 import contextlib
 import json
 import math
@@ -609,6 +628,27 @@ def cut_grid(specs, seeds):
              for s in specs], seeds[:CUT_SEEDS])
 
 
+def compare_lanes(label, rows, other_rows, name) -> None:
+    """Each lane's integer counters, fleet, fired events exactly, and its
+    cost, accelerator hours and egress within REL, against the lane of
+    the same (spec, seed) in ``other_rows``."""
+    if len(rows) != len(other_rows):
+        fail(f"{label} {name}: {len(other_rows)} rows for {len(rows)}")
+    for i, (a, b) in enumerate(zip(rows, other_rows)):
+        lane = (a.get("scenario"), a.get("seed"), i)
+        for k in INT_COUNTERS:
+            if a[k] != b[k]:
+                fail(f"{label} {lane}: {k} {a[k]} != {name} {b[k]}")
+        if a["by_provider"] != b["by_provider"]:
+            fail(f"{label} {lane}: by_provider differs from {name}")
+        if list(a["events_fired"]) != list(b["events_fired"]):
+            fail(f"{label} {lane}: events_fired differs from {name}")
+        for k in ("cost", "accel_hours", "egress_usd"):
+            if not math.isfinite(a[k]) or \
+                    abs(a[k] - b[k]) > REL * max(abs(b[k]), 1.0):
+                fail(f"{label} {lane}: {k} {a[k]} vs {name} {b[k]}")
+
+
 def drive(label, specs, seeds, cut=False):
     """One sweep on each route of the engine, same device and draws:
     "fused" (the default on the card: one campaign_sweep launch), "ops"
@@ -664,21 +704,7 @@ def drive(label, specs, seeds, cut=False):
         fail(f"{label}: {len(got.rows)} / {len(ref_rows)} rows for "
              f"{lanes} / {e_lanes} lanes")
     for other, name in ((by_ops, "ops"), (plain, "plain")):
-        if len(other.rows) != e_lanes:
-            fail(f"{label} {name}: {len(other.rows)} rows for {e_lanes}")
-        for a, b in zip(ref_rows, other.rows):
-            lane = (a["scenario"], a["seed"])
-            for k in INT_COUNTERS:
-                if a[k] != b[k]:
-                    fail(f"{label} {lane}: {k} {a[k]} != {name} {b[k]}")
-            if a["by_provider"] != b["by_provider"]:
-                fail(f"{label} {lane}: by_provider differs from {name}")
-            if a["events_fired"] != b["events_fired"]:
-                fail(f"{label} {lane}: events_fired differs from {name}")
-            for k in ("cost", "accel_hours", "egress_usd"):
-                if not math.isfinite(a[k]) or \
-                        abs(a[k] - b[k]) > REL * max(abs(b[k]), 1.0):
-                    fail(f"{label} {lane}: {k} {a[k]} vs {name} {b[k]}")
+        compare_lanes(label, ref_rows, other.rows, name)
     for a in got.rows:
         if not (a["cost"] > 0 and a["accel_hours"] > 0
                 and a["jobs_finished"] > 0):
@@ -725,11 +751,12 @@ def hot_spec():
 SWEEP_F32_OPS = 10
 
 
-def check_sweep(dev, specs, seeds) -> dict:
-    """The persistent sweep kernel against its plain version on the main
+def check_sweep(dev, specs, seeds, timed=True) -> dict:
+    """The persistent sweep kernel against its plain version on the
     grid's packed arguments: integer fields and flags exactly, f32 fields
-    within 1e-6 relative; its time per sweep (CUDA events), device time
-    (profiler), the plain version's time and the bound."""
+    within 1e-6 relative; with ``timed``, its time per sweep (CUDA
+    events), device time (profiler), the plain version's time and the
+    bound, else only the largest f32 error."""
     from repro_torch.core.sweep_result import _prepare
     from repro_torch.core.sweep_torch import TorchSweepEngine
     from repro_torch.kernels import ops, ref
@@ -750,9 +777,13 @@ def check_sweep(dev, specs, seeds) -> dict:
             d = (got[k] - v).abs()
             err = max(err, float(d.max()))
             if float((d / v.abs().clamp(min=1e-30)).max()) > 1e-6:
-                fail(f"campaign_sweep: {k} differs from the plain version")
+                fail(f"campaign_sweep: {k} differs from the plain version "
+                     f"({eng.B} lanes x {eng.N} ticks)")
         elif not torch.equal(got[k], v):
-            fail(f"campaign_sweep: {k} differs from the plain version")
+            fail(f"campaign_sweep: {k} differs from the plain version "
+                 f"({eng.B} lanes x {eng.N} ticks)")
+    if not timed:
+        return {"max_abs_err": err, "lanes": eng.B, "ticks": eng.N}
     nb = nbytes(*[t for t in args.values() if t is not None],
                 *got.values())
     b, how = bound(nb, SWEEP_F32_OPS * eng.B * eng.N * eng.G)
@@ -2834,6 +2865,20 @@ def tp_prefill_check(dev, smi, arch, layers, expect) -> dict:
             f"reference | {smi}")
         res[dt] = {"launches": nk, "rel": rel, "same": same,
                    "kernels_s": sk, "reference_s": sr}
+    # ROADMAP C16: how far each bf16 path's logits lie from the f32
+    # reference path's, by the 2-norm and by the largest element
+    want = got["float32", "reference"][0]
+    res["bfloat16"]["vs_f32"] = {
+        impl: {"norm": gap(got["bfloat16", impl][0], want),
+               "max": float((got["bfloat16", impl][0] - want).abs().max()
+                            / want.abs().max())}
+        for impl in ("pallas", "reference")}
+    far = res["bfloat16"]["vs_f32"]
+    log(f"[tp] a) C16: {arch} bf16 logits against the f32 reference "
+        f"path's: through flash {far['pallas']['norm']:.3e} of its 2-norm "
+        f"(largest element {far['pallas']['max']:.3e} of max |f32|), the "
+        f"chunked reference path {far['reference']['norm']:.3e} "
+        f"({far['reference']['max']:.3e}) | {smi}")
     del params, plain_params
     torch.cuda.empty_cache()
     return res
@@ -3170,6 +3215,203 @@ def jamba_check(j, smi) -> None:
         f"\"model\": none | {smi}")
 
 
+# -- phase 24: the examples' counterparts -------------------------------------
+
+# what the JAX examples print (``examples/*.py`` on the CPU), kept in
+# tests/data/jax_examples.json, which tests/test_torch_examples.py holds
+# equal to their live output; their counterparts are held to it
+def jax_example_lines() -> dict:
+    return json.loads((ROOT / "tests" / "data" / "jax_examples.json")
+                      .read_text())
+
+
+# the quickstart's budget floor fires at an hour that depends on the
+# spend of the engine's own draws: held within FLOOR_HOURS
+FLOOR_HOURS = 2.0
+# the quickstart's cost and GPU-days within the statistical tier's band
+STAT_BAND = 0.02
+QUICKSTART_STEPS, QUICKSTART_TOKENS = 200, 72
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (the examples are scripts)."""
+    import importlib
+    if str(ROOT / "examples") not in sys.path:
+        sys.path.insert(0, str(ROOT / "examples"))
+    return importlib.import_module(name)
+
+
+def run_example(tag: str, fn):
+    """(fn's result, its standard output's lines, its wall s); the lines
+    are logged under ``[examples] tag``."""
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"[examples] {tag} | {line}")
+    return out, lines, wall
+
+
+def hold_to_plain(dev, label, specs, seeds, rows) -> dict:
+    """The main path's sweep at its own shape against the plain versions:
+    the persistent kernel on the same packed arguments (``check_sweep``:
+    integers exact, f32 within 1e-6 relative) and each lane's results
+    against a ``use_kernels=False`` run of the same draws
+    (``compare_lanes``)."""
+    from repro_torch.core.api import sweep
+    held = check_sweep(dev, specs, seeds, timed=False)
+    plain = sweep(specs, seeds, device=dev, use_kernels=False).rows
+    compare_lanes(label, rows, plain, "plain")
+    return held
+
+
+def quickstart_part(dev) -> dict:
+    """a) the quickstart and the CLI; campaign_sweep's launches counted
+    from 0 just before each, then each of their sweeps held to the plain
+    versions at its own shape."""
+    from repro_torch import campaigns
+    from repro_torch.core.spec import CampaignSpec
+    from repro_torch.kernels import ops
+
+    want = jax_example_lines()["quickstart"]
+    want_fired = [ast.literal_eval(ln[len("  fired: "):]) for ln in want
+                  if ln.startswith("  fired: ")]
+    want_floor = want_fired.pop()
+    want_cost, want_days = (float(x.replace(",", "")) for x in re.search(
+        r"\$([0-9,]+) for ([0-9,.]+) GPU-days", want[1]).groups())
+    ckpt = ROOT / "build" / "quickstart_ckpt"
+    example = load_example("quickstart_torch")
+    ops.reset_launches()
+    try:
+        got, lines, wall = run_example("quickstart", lambda: example.main(
+            device=dev, steps=QUICKSTART_STEPS, ckpt_dir=str(ckpt)))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    launches = dict(ops.LAUNCHES)
+    fired = list(got["campaign"].events_fired)
+    res, losses, done = got["campaign"], got["losses"], got["served"]
+    tokens = sum(len(r.out) for r in done)
+    floor = fired[-1] if fired else {}
+    ok = (lines[0] == want[0] and fired[:-1] == want_fired
+          and {k: v for k, v in floor.items() if k != "t"}
+          == {k: v for k, v in want_floor.items() if k != "t"}
+          and abs(floor["t"] - want_floor["t"]) <= FLOOR_HOURS
+          and abs(res.cost - want_cost) <= STAT_BAND * want_cost
+          and abs(res.accel_days - want_days) <= STAT_BAND * want_days)
+    if not ok:
+        fail(f"examples a) quickstart's campaign: {lines[:2]}, fired "
+             f"{fired}, against the JAX example's {want_fired} + "
+             f"{want_floor} (its hour within {FLOOR_HOURS}), cost "
+             f"{res.cost} / GPU-days {res.accel_days} against "
+             f"{want_cost} / {want_days} within {STAT_BAND}")
+    want_launches = {k: 2 if k == "campaign_sweep" else 0 for k in launches}
+    if launches != want_launches:
+        fail(f"examples a) quickstart's launches {launches}, want "
+             f"{want_launches} (one fused sweep per run call; the trainer "
+             "and the server take the reference path)")
+    if not (len(losses) == QUICKSTART_STEPS and losses[-1] < losses[0]
+            and all(map(math.isfinite, losses))
+            and got["restored_step"] == QUICKSTART_STEPS
+            and len(done) == 6 and tokens == QUICKSTART_TOKENS):
+        fail(f"examples a) quickstart: {len(losses)} losses "
+             f"{losses[:1]} -> {losses[-1:]}, restored step "
+             f"{got['restored_step']}, {len(done)} requests, {tokens} tokens")
+
+    spec = ROOT / "tests" / "data" / "paper_replay.spec.json"
+    payload = ROOT / "build" / "cli_run.json"
+    ops.reset_launches()
+    rc, cli_lines, cli_wall = run_example("cli", lambda: campaigns.main(
+        ["run", str(spec), "--json", str(payload)]))
+    cli_launches = ops.LAUNCHES["campaign_sweep"]
+    body = json.loads(payload.read_text())
+    payload.unlink()
+    if rc != 0 or cli_launches != 1 or body["engine"] != "torch" \
+            or body["kind"] != "campaign" or not cli_lines[0].startswith(
+                "campaign 'paper' seed=2021 engine=torch"):
+        fail(f"examples a) the CLI: exit {rc}, {cli_launches} launches, "
+             f"payload engine {body.get('engine')} kind {body.get('kind')}, "
+             f"first line {cli_lines[:1]}")
+
+    t0 = time.perf_counter()
+    qs = got["spec"]
+    held = [hold_to_plain(dev, "examples a) quickstart run", [qs], [2021],
+                          [{**res.to_dict(), "events_fired": fired}]),
+            hold_to_plain(dev, "examples a) quickstart sweep", [qs],
+                          list(range(2021, 2025)), got["sweep"].rows),
+            hold_to_plain(dev, "examples a) the CLI", [CampaignSpec.from_json(
+                spec.read_text())], [2021], [{
+                    **body["results"], "events_fired": body["events_fired"]}])]
+    held_s = time.perf_counter() - t0
+    log(f"[examples] a) quickstart: {wall:.2f} s (campaign_sweep launches "
+        f"{launches['campaign_sweep']}; loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} over {QUICKSTART_STEPS} steps; restored at step "
+        f"{got['restored_step']}; {len(done)} requests, {tokens} tokens); "
+        f"the CLI {cli_wall:.2f} s (1 launch; cost "
+        f"${body['results']['cost']:,.2f}); each sweep held to the plain "
+        f"versions at its shape in {held_s:.2f} s ("
+        + ", ".join(f"{h['lanes']} lane(s) x {h['ticks']} ticks: kernel "
+                    f"f32 max abs err {h['max_abs_err']:.3g}" for h in held)
+        + "; lanes equal the use_kernels=False runs)")
+    return {"wall_s": wall, "launches": launches["campaign_sweep"],
+            "losses": [losses[0], losses[-1]], "cli_wall_s": cli_wall,
+            "cli_launches": cli_launches, "cost": res.cost,
+            "accel_days": res.accel_days, "budget_floor_h": floor["t"],
+            "held_s": held_s}
+
+
+def examples_phase(dev, smi: str) -> dict:
+    """Phase 24: a) the quickstart and the CLI, b) the overlay server,
+    c) the elastic example on a world of one NCCL rank it makes
+    itself."""
+    out = {"quickstart": quickstart_part(dev)}
+
+    want = jax_example_lines()
+    example = load_example("serve_overlay_torch")
+    _, lines, wall = run_example("serve_overlay",
+                                 lambda: example.main(device=dev))
+    if lines != want["serve_overlay"]:
+        fail(f"examples b) serve_overlay printed {lines}, the JAX example "
+             f"{want['serve_overlay']}")
+    log(f"[examples] b) serve_overlay: {wall:.2f} s, both lines equal the "
+        "JAX example's byte for byte")
+    out["serve_overlay"] = {"wall_s": wall}
+
+    import torch.distributed as dist
+    if dist.is_initialized():
+        fail("examples c) a process group is still open")
+    ckpt = ROOT / "build" / "elastic_example_ckpt"
+    example = load_example("elastic_cloud_train_torch")
+    try:
+        got, lines, wall = run_example("elastic", lambda: example.main(
+            device=dev, ckpt_dir=str(ckpt)))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    losses = got["losses"]
+    # the fleet line up to its pod count (the one-card form has one pod)
+    fleet, preempted, _, ledger = want["elastic_cloud_train"]
+    fleet = fleet[:fleet.index("->") + 3]
+    if not (len(losses) == 30 and all(map(math.isfinite, losses))
+            and tuple(got["pod_shape"]) == (1, 1) and got["max_pods"] == 1
+            and lines[0].startswith(fleet)
+            and lines[1] == preempted and lines[-1] == ledger
+            and not dist.is_initialized()):
+        fail(f"examples c) elastic: {lines}, {len(losses)} losses, pods "
+             f"{got['pod_shape']} x {got['max_pods']}; the JAX example's "
+             f"lines {fleet!r}, {preempted!r}, {ledger!r}")
+    log(f"[examples] c) elastic: {wall:.2f} s on one NCCL rank, pods (1, 1), "
+        f"{got['rebuilds']} mesh rebuild(s) (the JAX example on 4 devices, "
+        f"pods (2, 1): 4), loss {losses[0]:.4f} -> {losses[-1]:.4f}; fleet, "
+        f"spend and ledger lines equal the JAX example's | {smi}")
+    out["elastic"] = {"wall_s": wall, "rebuilds": got["rebuilds"],
+                      "losses": [losses[0], losses[-1]]}
+    return out
+
+
 def tp16_key(arch, tp16) -> str:
     """The kernels line's name of a rank-0 (16, 16) mesh prefill."""
     return (f"{arch} prefill ({tp16[arch]['depth']}), rank 0 of "
@@ -3298,6 +3540,10 @@ def main() -> int:
     tp = tp_phase(dev, smi)
     tp16 = tp["rank0"]["prefill"]
     log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
+    t0 = time.perf_counter()
+    examples = examples_phase(dev, smi)
+    log(f"[examples] phase {time.perf_counter() - t0:.1f} s | {smi}")
+    log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
 
     # the main path's own shapes: the bf16 forwards' (B=2: yi-9b's
     # attention, jamba's up product and scan) on the wgmma routes, the f32
@@ -3334,6 +3580,10 @@ def main() -> int:
         {"name": "campaign_sweep", "route": "cuda", "cuda_route": "simt",
          "source": SWEEP_SOURCE, "replaces": SWEEP_REPLACES,
          "launches": main_run["launches"]["campaign_sweep"],
+         "examples_launches": {
+             "quickstart (two run calls)": examples["quickstart"][
+                 "launches"],
+             "campaigns run": examples["quickstart"]["cli_launches"]},
          **{key: sweep_kernel[key] for key in keys}}] + [
         {"name": "flash_attention", "route": "cuda", "cuda_route": "wgmma",
          "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,

@@ -2,9 +2,10 @@
 
 The port's own copy of the catalog the sweep engine batches on (the
 T4 spot pools the paper ran on, the heterogeneous §III pool and the
-sub-GPU slicing transform).  Values and field order match the JAX
-package's catalog exactly, so a spec's JSON and its batch key are the
-same in both packages.
+sub-GPU slicing transform), and of the pod-slice table the elastic
+example provisions from (``tpu_catalog``).  Values and field order
+match the JAX package's catalog exactly, so a spec's JSON and its batch
+key are the same in both packages.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ from dataclasses import dataclass, replace
 from typing import Dict, Optional, Tuple
 
 __all__ = ["RegionSpec", "ProviderSpec", "T4_FP32_TFLOPS", "t4_catalog",
-           "heterogeneous_catalog", "slice_provider"]
+           "tpu_catalog", "heterogeneous_catalog", "slice_provider"]
 
 # fp32 peaks (paper's EFLOP accounting; §III GPU generations): TFLOP/s
 T4_FP32_TFLOPS = 8.141
@@ -74,6 +75,35 @@ def t4_catalog() -> Dict[str, ProviderSpec]:
             regions=(RegionSpec("us-east-1", 450, 0.012),
                      RegionSpec("us-west-2", 350, 0.015),
                      RegionSpec("eu-west-1", 250, 0.018)),
+            group_mechanism="SpotFleet"),
+    }
+
+
+def tpu_catalog() -> Dict[str, ProviderSpec]:
+    """The JAX package's price table of pod slices (``tpu_catalog`` in
+    its ``core/provider.py``), copied as data: three made-up clouds
+    whose provisioning unit is a TPU v5e pod slice, the member of the
+    elastic "pod" mesh axis, priced per slice-day.  The elastic example
+    provisions from it so that its fleet, spend and ledger equal the JAX
+    example's.  These are that package's modelling figures for a TPU
+    slice: no price or capacity here describes an H100 offer, and none
+    was measured."""
+    return {
+        "cloud-a": ProviderSpec(
+            "cloud-a", "v5e-slice", spot_price_per_day=1060.0,
+            ondemand_price_per_day=2470.0,
+            regions=(RegionSpec("a-east", 8, 0.004),
+                     RegionSpec("a-west", 4, 0.006)),
+            nat_idle_timeout_s=240.0, group_mechanism="VMSS"),
+        "cloud-b": ProviderSpec(
+            "cloud-b", "v5e-slice", spot_price_per_day=1420.0,
+            ondemand_price_per_day=2900.0,
+            regions=(RegionSpec("b-central", 6, 0.012),),
+            group_mechanism="InstanceGroups"),
+        "cloud-c": ProviderSpec(
+            "cloud-c", "v5e-slice", spot_price_per_day=1510.0,
+            ondemand_price_per_day=3100.0,
+            regions=(RegionSpec("c-east", 6, 0.015),),
             group_mechanism="SpotFleet"),
     }
 

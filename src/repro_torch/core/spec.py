@@ -31,6 +31,14 @@ SCHEMA_VERSION = 1
 #: the budget-floor tripwire is checked when one of them is crossed
 LEDGER_THRESHOLDS: Tuple[float, ...] = (0.5, 0.25, 0.2, 0.1, 0.05)
 
+# IceCube baseline for the "approximate doubling" claim (abstract/Fig 2):
+# ~9M GPU-h/yr of IceCube's own and OSG resources -> ~350k per 2 weeks
+ICECUBE_BASELINE_GPUH_PER_2W = 9e6 * (14 / 365.0)
+
+# §V summary claims a paper replay is compared against
+PAPER_CLAIMS = {"cost": 58000.0, "accel_days": 16000.0,
+                "eflop_hours_fp32": 3.1, "doubling": 2.0}
+
 
 @dataclass(frozen=True)
 class GpuSlicing:
@@ -343,6 +351,22 @@ class CampaignResult(MappingABC):
         d["busy_hours_by_provider"] = dict(self.busy_hours_by_provider)
         d["by_provider"] = dict(self.by_provider)
         return d
+
+    def doubling_factor(self) -> float:
+        """Cloud GPU-hours on top of IceCube's contemporaneous baseline
+        ('approximate doubling', abstract/Fig 2)."""
+        return 1 + self.busy_hours / ICECUBE_BASELINE_GPUH_PER_2W
+
+    def compare_paper(self) -> Dict[str, dict]:
+        """{claim: {sim, paper, err_pct}} for the §V summary numbers."""
+        sims = {"cost": self.cost, "accel_days": self.accel_days,
+                "eflop_hours_fp32": self.eflop_hours_fp32,
+                "doubling": self.doubling_factor()}
+        return {k: {"sim": sims[k], "paper": PAPER_CLAIMS[k],
+                    "err_pct": round(
+                        100 * (sims[k] - PAPER_CLAIMS[k]) / PAPER_CLAIMS[k],
+                        2)}
+                for k in PAPER_CLAIMS}
 
     def __getitem__(self, k):
         if k not in _RESULT_KEYS:

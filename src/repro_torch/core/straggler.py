@@ -1,17 +1,42 @@
-"""Straggler detection for synchronous training.
+"""Straggler detection and mitigation.
 
-The port's own copy of the JAX package's ``StragglerMonitor``
-(``core/straggler.py``, which needs no JAX): a per-pod step-time EWMA; a
-pod persistently slower than ``evict_factor`` x the fleet median is
-proposed for eviction from the pool (elastic shrink beats a permanently
-slow step, since a synchronous step runs at the slowest pod's speed).
-The trainer records its step times here.
+The port's own copy of the JAX package's ``core/straggler.py`` (which
+needs no JAX).  Two consumers:
+  * the job overlay (IceCube-style independent tasks): speculative
+    re-execution — if a job's elapsed time exceeds ``spec_factor`` x the
+    running median of completed jobs, clone it onto an idle pilot and let
+    the first copy win (classic backup tasks; ``SpeculativeScheduler``),
+  * synchronous training: a per-pod step-time EWMA; a pod persistently
+    slower than ``evict_factor`` x the fleet median is proposed for
+    eviction from the pool (elastic shrink beats a permanently slow
+    step, since a synchronous step runs at the slowest pod's speed;
+    ``StragglerMonitor``).  The trainer records its step times here.
 """
 from __future__ import annotations
 
 import statistics
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
+
+
+@dataclass
+class SpeculativeScheduler:
+    spec_factor: float = 2.0
+    min_samples: int = 5
+    completed_times: List[float] = field(default_factory=list)
+    speculated: int = 0
+
+    def record_completion(self, wall_h: float):
+        self.completed_times.append(wall_h)
+
+    def should_speculate(self, elapsed_h: float) -> bool:
+        if len(self.completed_times) < self.min_samples:
+            return False
+        med = statistics.median(self.completed_times)
+        if elapsed_h > self.spec_factor * med:
+            self.speculated += 1
+            return True
+        return False
 
 
 @dataclass

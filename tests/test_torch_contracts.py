@@ -26,10 +26,12 @@ from repro_torch.core.sweep_torch import TorchLaneOps
 
 ROOT = Path(__file__).resolve().parents[1]
 # the CUDA test file runs on the card's machine, which has no JAX; the
-# gloo rank programs run in processes that import none
+# gloo rank programs run in processes that import none; so do the
+# examples' counterparts
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_kernels_cuda.py",
-       ROOT / "tests" / "torch_dist_workers.py"]
+       ROOT / "tests" / "torch_dist_workers.py"] \
+    + sorted((ROOT / "examples").glob("*_torch.py"))
 SPEC_FILES = sorted((ROOT / "tests" / "data").glob("*.spec.json"))
 
 

@@ -16,6 +16,10 @@ scenario through ``ElasticRunner`` and ``make_mesh_train_step``.
 CASE "steps": ``make_mesh_prefill_step`` and ``make_mesh_decode_step`` on
 both meshes against the plain steps on the global batch (each rank
 computes both; the largest gaps and the placements go to the npz).
+CASE "example": ``examples/elastic_cloud_train_torch.py``'s ``main`` on
+the world of 4 (pods (2, 1)), fed the JAX tree of INPUTS' ``param/...``
+leaves and its ``batch/<step>/...`` batches; its lines, losses and
+rebuild count go to the npz.
 """
 import os
 import sys
@@ -278,6 +282,41 @@ def _steps_rank(out):
                     same_placements(dcaches, csh))
 
 
+def load_example(name):
+    """``examples/<name>.py`` as a module: the examples are scripts, not
+    a package."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                        "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _example_rank(inp, out, work):
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.convert import params_from_jax
+
+    example = load_example("elastic_cloud_train_torch")
+    jtree = {}
+    for k, v in inp.items():
+        if k.startswith("param/"):
+            node, keys = jtree, k[len("param/"):].split("/")
+            for key in keys[:-1]:
+                node = node.setdefault(key, {})
+            node[keys[-1]] = v
+    params = params_from_jax(jtree, get_reduced("yi-9b"), device="cpu")
+
+    def batch_fn(step):
+        return {k: inp[f"batch/{step}/{k}"] for k in ("tokens", "targets")}
+    got = example.main(params_host=params, batch_fn=batch_fn, device="cpu",
+                       ckpt_dir=os.path.join(work, "ckpt"))
+    out["lines"] = np.array(got["lines"])
+    out["losses"] = np.array(got["losses"])
+    out["rebuilds"] = np.int64(got["rebuilds"])
+
+
 def _rank(rank, case, inputs, out_dir):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{out_dir}/store",
@@ -289,6 +328,8 @@ def _rank(rank, case, inputs, out_dir):
             _moe_rank(inp, out)
         elif case == "steps":
             _steps_rank(out)
+        elif case == "example":
+            _example_rank(inp, out, out_dir)
         else:
             _elastic_rank(inp, out, out_dir)
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
