@@ -273,14 +273,33 @@ Phases (any failure raises and exits non-zero with no result line):
              last loss below the first), ``restore`` at step 200, 6
              requests served, 72 tokens; then ``python -m
              repro_torch.campaigns run tests/data/paper_replay.spec.json``
-             in-process (1 launch) and its JSON payload; b)
+             in-process (1 launch) and its JSON payload; each sweep held
+             to the plain versions, the CLI's 1,344-tick lane at its 96 h
+             cut; b)
              ``examples/serve_overlay_torch.py``: its two lines equal the
              JAX example's byte for byte; c)
              ``examples/elastic_cloud_train_torch.py`` on a world of one
              NCCL rank it makes itself (pods (1, 1), at most one): 30
              finite losses, the fleet, spend ($530) and ledger lines equal
              to the JAX example's, the rebuild count reported;
- 25. report  a ``{"kernels": [...]}`` line (each entry with its route,
+ 25. planning the what-if planning front door on the fused sweep: a)
+             ``sweep(default_suite(), range(8))`` (152 lanes, 6 engine
+             batches) and ``sweep(pareto_grid(), range(17))`` (204 lanes,
+             4 batches) at full duration through ``drive``: 6 and 4
+             campaign_sweep launches, no per-op launch (counted from 0
+             just before), each wall, its ``timings=`` split and the
+             frontier (``analysis.pareto.frontier``) printed; b) the same
+             grids cut to their first 2 seeds at 96 h on the fused and
+             plain routes: every lane's integer counters, by_provider
+             and events_fired equal, cost, accelerator hours and egress
+             within 1e-5 relative, and the kernel against its plain
+             version on each cut batch's packed arguments; c) ``python -m
+             repro_torch.campaigns pareto --duration-h 96 --seeds
+             2021,2022`` in-process: 4 launches, its payload's frontier
+             equal to an in-process sweep's; d)
+             ``examples/whatif_sweep_torch.py``'s ``main`` at its
+             defaults (19 specs x 8 seeds): 6 launches;
+ 26. report  a ``{"kernels": [...]}`` line (each entry with its route,
              "cuda", and "cuda_route", the kernel's route on the main path:
              "wgmma" or "simt"; flash attention and moe_gmm have one entry
              per route, the simt one, "flash_attention.simt",
@@ -293,7 +312,8 @@ Phases (any failure raises and exits non-zero with no result line):
              (16, 16), keyed by arch and depth, and
              "one_rank_mesh_launches", phase 23 a)'s on a
              one-rank mesh, which is the plain step; campaign_sweep's
-             adds "examples_launches", phase 24's),
+             adds "examples_launches", phase 24's, and
+             "planning_launches", phase 25's),
              the nvidia-smi line, and last
              ``{"ok": true, "device": {...}}``.
 
@@ -620,12 +640,12 @@ def ticks_of(spec) -> int:
     return n_ticks
 
 
-def cut_grid(specs, seeds):
-    """The grid the eager routes of ``drive`` run: the first CUT_SEEDS
+def cut_grid(specs, seeds, n_seeds=CUT_SEEDS):
+    """The grid the eager routes of ``drive`` run: the first ``n_seeds``
     seeds, each campaign cut to CUT_HOURS (their wall is ~294 launches a
     tick from Python, so it follows the ticks, not the lanes)."""
     return ([replace(s, duration_h=min(s.duration_h, CUT_HOURS))
-             for s in specs], seeds[:CUT_SEEDS])
+             for s in specs], seeds[:n_seeds])
 
 
 def compare_lanes(label, rows, other_rows, name) -> None:
@@ -649,26 +669,42 @@ def compare_lanes(label, rows, other_rows, name) -> None:
                 fail(f"{label} {lane}: {k} {a[k]} vs {name} {b[k]}")
 
 
-def drive(label, specs, seeds, cut=False):
-    """One sweep on each route of the engine, same device and draws:
-    "fused" (the default on the card: one campaign_sweep launch), "ops"
-    (the eager tick loop through the per-op kernels, forced) and "plain"
-    (use_kernels=False).  Launch counts are read around each kernel
-    route's run; every lane of "ops" and "plain" is compared with the
-    fused lane of the same grid.  With ``cut``, "ops" and "plain" run the
-    cut grid of ``cut_grid`` and the fused route runs both grids (the
-    full one timed); without, all three run the one grid."""
-    from repro_torch.core.api import sweep
+def batch_keys(specs) -> list:
+    """The distinct engine batch keys of ``specs``, in first-seen order
+    (the key does not depend on the seed)."""
     from repro_torch.core.sweep_result import _prepare
+    keys = []
+    for s in specs:
+        key = repr(_prepare(s, 0)[0])
+        if key not in keys:
+            keys.append(key)
+    return keys
+
+
+def drive(label, specs, seeds, cut=False, batches=1,
+          eager=("ops", "plain"), cut_seeds=CUT_SEEDS):
+    """One sweep on each route of the engine, same device and draws:
+    "fused" (the default on the card: one campaign_sweep launch per
+    engine batch; ``specs`` must span exactly ``batches``), and the eager
+    routes named in ``eager``: "ops" (the eager tick loop through the
+    per-op kernels, forced) and "plain" (use_kernels=False).  Launch
+    counts are read around each kernel route's run; every lane of each
+    eager route is compared with the fused lane of the same grid.  With
+    ``cut``, the eager routes run the cut grid of ``cut_grid`` (its first
+    ``cut_seeds`` seeds) and the fused route runs both grids (the full
+    one timed); without, all routes run the one grid."""
+    from repro_torch.core.api import sweep
     from repro_torch.kernels import ops
 
-    keys = {repr(_prepare(s, 0)[0]) for s in specs}
-    if len(keys) != 1:
-        fail(f"{label}: specs span {len(keys)} engine batches, expected 1")
+    keys = batch_keys(specs)
+    if len(keys) != batches:
+        fail(f"{label}: specs span {len(keys)} engine batches, expected "
+             f"{batches}")
     n_ticks = ticks_of(specs[0])
     lanes = len(specs) * len(seeds)
     zero = {name: 0 for name in ops.LAUNCHES}
-    e_specs, e_seeds = cut_grid(specs, seeds) if cut else (specs, seeds)
+    e_specs, e_seeds = cut_grid(specs, seeds, cut_seeds) if cut \
+        else (specs, seeds)
     e_ticks, e_lanes = ticks_of(e_specs[0]), len(e_specs) * len(e_seeds)
 
     def run(route, grid=(specs, seeds)):
@@ -686,25 +722,30 @@ def drive(label, specs, seeds, cut=False):
                 dict(ops.SWEEP_ROUTES), split)
 
     got, t_fused, launches, routes, split = run("fused")
-    if launches != {**zero, "campaign_sweep": 1} or \
-            routes != {"campaign_sweep.fused": 1, "campaign_sweep.ops": 0}:
+    if launches != {**zero, "campaign_sweep": batches} or \
+            routes != {"campaign_sweep.fused": batches,
+                       "campaign_sweep.ops": 0}:
         fail(f"{label} fused: launches {launches}, routes {routes}; "
-             "expected one campaign_sweep launch and no per-op launch")
+             f"expected {batches} campaign_sweep launch(es) and no per-op "
+             "launch")
     ref_rows = run("fused", (e_specs, e_seeds))[0].rows if cut else got.rows
-    by_ops, t_ops, launches_ops, routes_ops, _ = run("ops",
-                                                     (e_specs, e_seeds))
-    expect = {**zero, **{k: n * e_ticks for k, n in OPS_PER_TICK.items()}}
-    if launches_ops != expect or routes_ops["campaign_sweep.ops"] != 1:
-        fail(f"{label} ops: launches {launches_ops}, expected {expect}")
-    plain, t_plain, launches_plain, _, _ = run("plain", (e_specs, e_seeds))
-    if any(launches_plain.values()):
-        fail(f"{label} plain: launches {launches_plain}")
+    walls, launches_ops = {}, None
+    for route in eager:
+        other, walls[route], counted, routed, _ = run(route,
+                                                      (e_specs, e_seeds))
+        if route == "ops":
+            launches_ops = counted
+            expect = {**zero, **{k: n * e_ticks * batches
+                                 for k, n in OPS_PER_TICK.items()}}
+            if counted != expect or routed["campaign_sweep.ops"] != batches:
+                fail(f"{label} ops: launches {counted}, expected {expect}")
+        elif any(counted.values()):
+            fail(f"{label} plain: launches {counted}")
+        compare_lanes(label, ref_rows, other.rows, route)
 
     if len(got.rows) != lanes or len(ref_rows) != e_lanes:
         fail(f"{label}: {len(got.rows)} / {len(ref_rows)} rows for "
              f"{lanes} / {e_lanes} lanes")
-    for other, name in ((by_ops, "ops"), (plain, "plain")):
-        compare_lanes(label, ref_rows, other.rows, name)
     for a in got.rows:
         if not (a["cost"] > 0 and a["accel_hours"] > 0
                 and a["jobs_finished"] > 0):
@@ -714,18 +755,22 @@ def drive(label, specs, seeds, cut=False):
     def rate(t, n_lanes=lanes, ticks=n_ticks):
         return (f"{t:.3f} s ({n_lanes / t:.1f} campaigns/s, "
                 f"{1e3 * t / ticks:.3f} ms/tick)")
-    eager = "" if not cut else \
-        f" (ops and plain on the cut grid: {e_lanes} lanes x {e_ticks} ticks)"
-    log(f"[{label}] {lanes} lanes x {n_ticks} ticks: fused {rate(t_fused)}; "
-        f"ops {rate(t_ops, e_lanes, e_ticks)}; plain "
-        f"{rate(t_plain, e_lanes, e_ticks)}{eager}; cost "
-        f"${min(costs):,.0f}..${max(costs):,.0f}; fused launches "
-        f"{launches['campaign_sweep']}, ops launches "
-        f"{ {k: launches_ops[k] for k in OPS_PER_TICK} }")
+    on_cut = "" if not cut else \
+        f" ({', '.join(eager)} on the cut grid: {e_lanes} lanes x " \
+        f"{e_ticks} ticks)"
+    ops_txt = "" if launches_ops is None else \
+        f", ops launches { {k: launches_ops[k] for k in OPS_PER_TICK} }"
+    log(f"[{label}] {lanes} lanes x {n_ticks} ticks in {batches} "
+        f"batch(es): fused {rate(t_fused)}; "
+        + "; ".join(f"{r} {rate(walls[r], e_lanes, e_ticks)}"
+                    for r in eager)
+        + f"{on_cut}; cost ${min(costs):,.0f}..${max(costs):,.0f}; fused "
+        f"launches {launches['campaign_sweep']}{ops_txt}")
     return {"lanes": lanes, "ticks": n_ticks, "fused_s": t_fused,
-            "ops_s": t_ops, "plain_s": t_plain, "launches": launches,
-            "launches_ops": launches_ops, "split": split,
-            "eager_grid": (e_lanes, e_ticks)}
+            "ops_s": walls.get("ops"), "plain_s": walls.get("plain"),
+            "launches": launches, "launches_ops": launches_ops,
+            "split": split, "eager_grid": (e_lanes, e_ticks),
+            "result": got}
 
 
 def hot_spec():
@@ -3241,9 +3286,9 @@ def load_example(name: str):
     return importlib.import_module(name)
 
 
-def run_example(tag: str, fn):
+def run_example(tag: str, fn, phase: str = "examples"):
     """(fn's result, its standard output's lines, its wall s); the lines
-    are logged under ``[examples] tag``."""
+    are logged under ``[phase] tag``."""
     import io
     buf = io.StringIO()
     t0 = time.perf_counter()
@@ -3253,7 +3298,7 @@ def run_example(tag: str, fn):
     wall = time.perf_counter() - t0
     lines = buf.getvalue().splitlines()
     for line in lines:
-        log(f"[examples] {tag} | {line}")
+        log(f"[{phase}] {tag} | {line}")
     return out, lines, wall
 
 
@@ -3275,6 +3320,7 @@ def quickstart_part(dev) -> dict:
     from 0 just before each, then each of their sweeps held to the plain
     versions at its own shape."""
     from repro_torch import campaigns
+    from repro_torch.core.api import sweep
     from repro_torch.core.spec import CampaignSpec
     from repro_torch.kernels import ops
 
@@ -3337,23 +3383,37 @@ def quickstart_part(dev) -> dict:
              f"payload engine {body.get('engine')} kind {body.get('kind')}, "
              f"first line {cli_lines[:1]}")
 
+    # the CLI's payload against an in-process fused run of the same draws,
+    # and the kernel held to its plain version at the CLI lane's own
+    # shape (1,344 ticks); only the eager use_kernels=False lane
+    # comparison runs the lane cut to CUT_HOURS, as ``drive``'s eager
+    # routes do
     t0 = time.perf_counter()
     qs = got["spec"]
+    cli_spec = CampaignSpec.from_json(spec.read_text())
+    compare_lanes("examples a) the CLI",
+                  [{**body["results"], "events_fired": body["events_fired"]}],
+                  sweep([cli_spec], [2021], device=dev).rows, "fused")
+    cli_cut, = cut_grid([cli_spec], [2021])[0]
+    compare_lanes("examples a) the CLI's lane at 96 h",
+                  sweep([cli_cut], [2021], device=dev).rows,
+                  sweep([cli_cut], [2021], device=dev,
+                        use_kernels=False).rows, "plain")
     held = [hold_to_plain(dev, "examples a) quickstart run", [qs], [2021],
                           [{**res.to_dict(), "events_fired": fired}]),
             hold_to_plain(dev, "examples a) quickstart sweep", [qs],
                           list(range(2021, 2025)), got["sweep"].rows),
-            hold_to_plain(dev, "examples a) the CLI", [CampaignSpec.from_json(
-                spec.read_text())], [2021], [{
-                    **body["results"], "events_fired": body["events_fired"]}])]
+            check_sweep(dev, [cli_spec], [2021], timed=False)]
     held_s = time.perf_counter() - t0
     log(f"[examples] a) quickstart: {wall:.2f} s (campaign_sweep launches "
         f"{launches['campaign_sweep']}; loss {losses[0]:.4f} -> "
         f"{losses[-1]:.4f} over {QUICKSTART_STEPS} steps; restored at step "
         f"{got['restored_step']}; {len(done)} requests, {tokens} tokens); "
         f"the CLI {cli_wall:.2f} s (1 launch; cost "
-        f"${body['results']['cost']:,.2f}); each sweep held to the plain "
-        f"versions at its shape in {held_s:.2f} s ("
+        f"${body['results']['cost']:,.2f}, its payload equal to an "
+        f"in-process fused run); each sweep held to the plain versions (the "
+        f"CLI's lane-by-lane use_kernels=False run cut to 96 h) in "
+        f"{held_s:.2f} s ("
         + ", ".join(f"{h['lanes']} lane(s) x {h['ticks']} ticks: kernel "
                     f"f32 max abs err {h['max_abs_err']:.3g}" for h in held)
         + "; lanes equal the use_kernels=False runs)")
@@ -3409,6 +3469,108 @@ def examples_phase(dev, smi: str) -> dict:
         f"spend and ledger lines equal the JAX example's | {smi}")
     out["elastic"] = {"wall_s": wall, "rebuilds": got["rebuilds"],
                       "losses": [losses[0], losses[-1]]}
+    return out
+
+
+# -- phase 25: the what-if planning front door --------------------------------
+
+# the planning grids: (label, library entry, seeds, engine batches)
+PLANNING_GRIDS = (("suite", "default_suite", 8, 6),
+                  ("pareto", "pareto_grid", 17, 4))
+# b)'s cut: the first PLANNING_CUT_SEEDS seeds at CUT_HOURS
+PLANNING_CUT_SEEDS = 2
+
+
+def planning_phase(dev, smi: str) -> dict:
+    """Phase 25: a) + b) each planning grid through ``drive``: the fused
+    route at full duration (one launch per engine batch, counted from 0
+    just before; its wall, ``timings=`` split and frontier printed), and
+    the cut grid on the fused and plain routes, lane for lane; the fused
+    kernel held to its plain version on each full-duration batch's
+    packed arguments; c) ``campaigns pareto`` in-process; d)
+    ``examples/whatif_sweep_torch.py``'s ``main``."""
+    from repro_torch import campaigns
+    from repro_torch.analysis.pareto import frontier
+    from repro_torch.core import scenarios
+    from repro_torch.core.api import sweep
+    from repro_torch.kernels import ops
+
+    out = {}
+    for label, entry, n_seeds, batches in PLANNING_GRIDS:
+        specs = getattr(scenarios, entry)()
+        tag = f"planning {label}"
+        res = drive(tag, specs, list(range(n_seeds)), cut=True,
+                    batches=batches, eager=("plain",),
+                    cut_seeds=PLANNING_CUT_SEEDS)
+        split = res["split"]
+        log(f"[{tag}] {entry}() x {n_seeds} seeds, fused route: wall "
+            f"{res['fused_s']:.4f} s = prepare {split['prepare']:.4f} + "
+            f"planner {split['planner']:.4f} + run {split['run']:.4f} + "
+            f"results {split['results']:.4f} s (host clock) | {smi}")
+        front = frontier(res["result"])
+        for line in front.table().splitlines():
+            log(f"[{tag}] {line}")
+        # the kernel on each full-duration batch of a)'s grid, after every
+        # timeline event has fired, against its plain version
+        groups = {}
+        for s in specs:
+            groups.setdefault(batch_keys([s])[0], []).append(s)
+        t0 = time.perf_counter()
+        held = [check_sweep(dev, group, list(range(n_seeds)), timed=False)
+                for group in groups.values()]
+        held_s = time.perf_counter() - t0
+        log(f"[{tag}] the kernel on each full-duration batch's packed "
+            "arguments against its plain version: exact integers, f32 max "
+            "abs err "
+            + ", ".join(f"{h['max_abs_err']:.3g} ({h['lanes']} lanes x "
+                        f"{h['ticks']} ticks)" for h in held)
+            + f"; {held_s:.2f} s")
+        out[label] = {"launches": res["launches"]["campaign_sweep"],
+                      "wall_s": res["fused_s"], "split": split,
+                      "plain_cut_s": res["plain_s"],
+                      "held_s": held_s,
+                      "frontier": [p.scenario for p in front.frontier]}
+
+    # c) the CLI's pareto, its payload against an in-process fused sweep
+    path = ROOT / "build" / "cli_pareto.json"
+    argv = ["pareto", "--duration-h", str(CUT_HOURS), "--seeds",
+            "2021,2022", "--json", str(path)]
+    ops.reset_launches()
+    rc, lines, wall = run_example("pareto", lambda: campaigns.main(argv),
+                                   "planning")
+    launches = dict(ops.LAUNCHES)
+    body = json.loads(path.read_text())
+    path.unlink()
+    grid = [replace(s, duration_h=CUT_HOURS)
+            for s in scenarios.pareto_grid()]
+    want = frontier(sweep(grid, [2021, 2022], device=dev)).to_dict()
+    if rc != 0 or launches != {**{k: 0 for k in launches},
+                               "campaign_sweep": 4} \
+            or {k: body[k] for k in want} != want:
+        fail(f"planning c) campaigns pareto: exit {rc}, launches "
+             f"{launches}, payload {body} against {want}")
+    log(f"[planning] c) campaigns {' '.join(argv[:-2])}: {wall:.3f} s, "
+        f"{launches['campaign_sweep']} launches, frontier "
+        f"{[p['scenario'] for p in body['points'] if p['on_frontier']]} "
+        f"equal to the in-process sweep's | {smi}")
+    out["cli"] = {"launches": launches["campaign_sweep"], "wall_s": wall}
+
+    # d) the what-if example at its defaults: default_suite() x 8 seeds
+    example = load_example("whatif_sweep_torch")
+    ops.reset_launches()
+    sw, lines, wall = run_example("whatif", lambda: example.main([]),
+                                   "planning")
+    launches = dict(ops.LAUNCHES)
+    rows = sw.rows
+    if launches != {**{k: 0 for k in launches}, "campaign_sweep": 6} \
+            or len(rows) != 152 or len(sw.scenario_names()) != 19 \
+            or not all(math.isfinite(r["cost"]) and r["cost"] > 0
+                       and r["accel_days"] > 0 for r in rows):
+        fail(f"planning d) whatif_sweep_torch: launches {launches}, "
+             f"{len(rows)} rows")
+    log(f"[planning] d) whatif_sweep_torch: {wall:.3f} s, "
+        f"{launches['campaign_sweep']} launches, {len(rows)} lanes | {smi}")
+    out["whatif"] = {"launches": launches["campaign_sweep"], "wall_s": wall}
     return out
 
 
@@ -3544,6 +3706,10 @@ def main() -> int:
     examples = examples_phase(dev, smi)
     log(f"[examples] phase {time.perf_counter() - t0:.1f} s | {smi}")
     log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
+    t0 = time.perf_counter()
+    planning = planning_phase(dev, smi)
+    log(f"[planning] phase {time.perf_counter() - t0:.1f} s | {smi}")
+    log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
 
     # the main path's own shapes: the bf16 forwards' (B=2: yi-9b's
     # attention, jamba's up product and scan) on the wgmma routes, the f32
@@ -3584,6 +3750,13 @@ def main() -> int:
              "quickstart (two run calls)": examples["quickstart"][
                  "launches"],
              "campaigns run": examples["quickstart"]["cli_launches"]},
+         "planning_launches": {
+             "default_suite() x 8 seeds (6 batches)": planning["suite"][
+                 "launches"],
+             "pareto_grid() x 17 seeds (4 batches)": planning["pareto"][
+                 "launches"],
+             "campaigns pareto": planning["cli"]["launches"],
+             "whatif_sweep_torch": planning["whatif"]["launches"]},
          **{key: sweep_kernel[key] for key in keys}}] + [
         {"name": "flash_attention", "route": "cuda", "cuda_route": "wgmma",
          "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
@@ -3627,6 +3800,7 @@ def main() -> int:
          "source": MLSTM_SIMT_SOURCE, "replaces": MLSTM_REPLACES,
          "launches": x_f32["launches"],
          **{key: mlstm_f32[key] for key in keys}}]}
+    log(f"[time] whole script {time.perf_counter() - t_start:.1f} s | {smi}")
     print(json.dumps(report))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,7 @@ from __future__ import annotations
 import json
 from collections.abc import Mapping as MappingABC
 from dataclasses import asdict, dataclass, fields, replace
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 from repro_torch.core.dataplane import DataOrigin, DataPlane  # noqa: F401
 from repro_torch.core.provider import (T4_FP32_TFLOPS, ProviderSpec,
@@ -23,7 +23,8 @@ from repro_torch.core.timeline import (BudgetFloor, CacheFlush,  # noqa: F401
                                        OriginDegrade, OriginOutage,
                                        PriceCurve, PriceShift, SetTarget,
                                        WorkloadCurve, event_from_dict,
-                                       event_to_dict, validate_event)
+                                       event_to_dict, lint_timeline,
+                                       validate_event)
 
 SCHEMA_VERSION = 1
 
@@ -281,6 +282,158 @@ def build_catalog(spec) -> Dict[str, ProviderSpec]:
     cat = _scale_prices(cat, spec.price_scale)
     cat = _split_ondemand(cat, spec.ondemand_fraction)
     return cat
+
+
+# -- spec-level lint (the `campaigns lint` CLI) ----------------------------
+
+#: stable lint rule ids, the JAX package's: every ``lint_spec`` finding
+#: is prefixed ``"SPECnnn: "``.  SPEC0xx are spec-level checks here;
+#: SPEC10x are timeline-structure checks and SPEC11x per-event checks,
+#: both in core/timeline.py.
+SPEC_RULES: Dict[str, str] = {
+    "SPEC001": "unknown catalog name",
+    "SPEC002": "non-positive duration_h",
+    "SPEC003": "non-positive dt_h",
+    "SPEC004": "non-positive budget",
+    "SPEC005": "negative price_scale",
+    "SPEC006": "budget_floor_fraction outside [0, 1]",
+    "SPEC007": "negative downscale_target",
+    "SPEC008": "negative min_queue",
+    "SPEC009": "provider with a negative price",
+    "SPEC010": "region with negative capacity",
+    "SPEC011": "gpu_slicing.slices < 1",
+    "SPEC012": "non-positive gpu_slicing price/tflops factor",
+    "SPEC013": "gpu_slicing names an unknown provider",
+    "SPEC014": "negative job_input_gb",
+    "SPEC015": "origin with non-positive bandwidth_gbps",
+    "SPEC016": "origin with negative egress_usd_per_gb",
+    "SPEC017": "origin with negative cache_bandwidth_gbps",
+    "SPEC018": "origin cache_hit_rate outside [0, 1]",
+    "SPEC019": "dataplane names an unknown provider",
+    "SPEC020": "inert dataplane (no input bytes, no egress price)",
+    "SPEC021": "dataplane timeline events without a dataplane",
+    "SPEC100": "unloadable spec file",
+    "SPEC101": "unknown timeline event",
+    "SPEC102": "negative event time",
+    "SPEC103": "event times not sorted",
+    "SPEC104": "dead event: fires at/after the campaign end",
+    "SPEC105": "events sharing an anchor time",
+    "SPEC110": "negative scale target",
+    "SPEC111": "non-positive outage duration",
+    "SPEC112": "negative resume_target",
+    "SPEC113": "non-positive factor",
+    "SPEC114": "fraction outside [0, 1]",
+    "SPEC115": "negative downscale_target",
+    "SPEC116": "empty curve",
+    "SPEC117": "out-of-range curve factor",
+    "SPEC118": "curve points not time-sorted",
+    "SPEC119": "unknown provider name",
+}
+
+
+def lint_spec(spec: CampaignSpec) -> List[str]:
+    """Static plausibility checks before a sweep is spent on a typo'd
+    campaign: unsorted or shared event times, negative prices, targets
+    and factors, unknown catalog and provider names.  Returns every
+    finding at once (empty: clean); unlike ``validate()`` it never
+    raises."""
+    out: List[str] = []
+    if spec.providers is None and spec.catalog not in (
+            "t4", "heterogeneous"):
+        out.append(f"SPEC001: unknown catalog name {spec.catalog!r} "
+                   "(known: 't4', 'heterogeneous')")
+    if spec.duration_h <= 0:
+        out.append(f"SPEC002: duration_h must be positive, "
+                   f"got {spec.duration_h}")
+    if spec.dt_h <= 0:
+        out.append(f"SPEC003: dt_h must be positive, got {spec.dt_h}")
+    if spec.budget <= 0:
+        out.append(f"SPEC004: budget must be positive, got {spec.budget}")
+    if spec.price_scale < 0:
+        out.append(f"SPEC005: negative price_scale {spec.price_scale}")
+    if not 0.0 <= spec.budget_floor_fraction <= 1.0:
+        out.append(f"SPEC006: budget_floor_fraction "
+                   f"{spec.budget_floor_fraction} outside [0, 1]")
+    if spec.downscale_target < 0:
+        out.append(f"SPEC007: negative downscale_target "
+                   f"{spec.downscale_target}")
+    if spec.min_queue < 0:
+        out.append(f"SPEC008: negative min_queue {spec.min_queue}")
+    if spec.providers is not None:
+        for p in spec.providers:
+            if p.spot_price_per_day < 0 or p.ondemand_price_per_day < 0:
+                out.append(f"SPEC009: provider {p.name!r} has a negative "
+                           "price")
+            for r in p.regions:
+                if r.capacity < 0:
+                    out.append(f"SPEC010: provider {p.name!r} region "
+                               f"{r.name!r} has negative capacity")
+    try:
+        known_providers = set(build_catalog(spec))
+    except (ValueError, ZeroDivisionError):
+        known_providers = None           # catalog findings already queued
+    sl = spec.gpu_slicing
+    if sl is not None:
+        if sl.slices < 1:
+            out.append(f"SPEC011: gpu_slicing.slices must be >= 1, "
+                       f"got {sl.slices}")
+        if sl.price_factor <= 0 or sl.tflops_factor <= 0:
+            out.append("SPEC012: gpu_slicing price/tflops factors must be "
+                       "positive")
+        if sl.providers is not None:
+            if spec.providers is not None:
+                base = {p.name for p in spec.providers}
+            elif spec.catalog == "t4":
+                base = set(t4_catalog())
+            elif spec.catalog == "heterogeneous":
+                base = set(heterogeneous_catalog())
+            else:
+                base = None               # catalog finding already queued
+            for name in sl.providers:
+                if base is not None and name not in base:
+                    out.append(f"SPEC013: gpu_slicing names unknown "
+                               f"provider {name!r}")
+    if spec.job_input_gb < 0:
+        out.append(f"SPEC014: negative job_input_gb {spec.job_input_gb}")
+    dp = spec.dataplane
+    if dp is not None:
+        for name, o in dp.origins:
+            if o.bandwidth_gbps <= 0:
+                out.append(f"SPEC015: origin {name!r} bandwidth_gbps must "
+                           f"be positive, got {o.bandwidth_gbps}")
+            if o.egress_usd_per_gb < 0:
+                out.append(f"SPEC016: origin {name!r} has a negative "
+                           f"egress_usd_per_gb")
+            if o.cache_bandwidth_gbps < 0:
+                out.append(f"SPEC017: origin {name!r} has a negative "
+                           f"cache_bandwidth_gbps")
+            if not 0.0 <= o.cache_hit_rate <= 1.0:
+                out.append(f"SPEC018: origin {name!r} cache_hit_rate "
+                           f"{o.cache_hit_rate} outside [0, 1]")
+            if known_providers is not None:
+                bases = {p.split("/", 1)[0] for p in known_providers}
+                if name not in known_providers and name not in bases:
+                    out.append(f"SPEC019: dataplane names unknown "
+                               f"provider {name!r}")
+        if spec.job_input_gb == 0.0 and not any(
+                o.egress_usd_per_gb > 0 for _, o in dp.origins):
+            out.append("SPEC020: dataplane declared but job_input_gb is 0 "
+                       "and no origin charges egress: the data plane "
+                       "is inert")
+    else:
+        dead = sorted({type(ev).kind for ev in spec.timeline
+                       if type(ev).kind in ("origin_outage",
+                                            "origin_degrade",
+                                            "cache_flush")})
+        for kind in dead:
+            out.append(f"SPEC021: timeline has {kind!r} events but the "
+                       "spec declares no dataplane: they will never "
+                       "matter")
+    # per-event rules: every registered kind declares its own lint in
+    # core/timeline.py
+    out.extend(lint_timeline(spec.timeline, spec.duration_h,
+                             known_providers))
+    return out
 
 
 # -- typed results ---------------------------------------------------------

@@ -1,8 +1,8 @@
 """One declarative registry for every timed campaign event.
 
 Each timed spec event is registered once: its frozen dataclass, its
-compiled ``(t, op_kind, arg)`` form, its JSON decode coercions and its
-validation.  Each compiled op is registered once too, as an ``apply``
+compiled ``(t, op_kind, arg)`` form, its lint rules, its JSON decode
+coercions and its validation.  Each compiled op is registered once too, as an ``apply``
 body that drives an :class:`EngineOps` adapter and returns the
 provenance record body.  The sweep engine's planner adapter
 (``sweep_torch.TorchLaneOps``) runs these bodies ahead of time to bake
@@ -23,7 +23,8 @@ __all__ = ["EngineOps", "SetTarget", "CEOutage", "PriceShift",
            "OpSpec", "EventType", "REGISTRY", "OPS",
            "register_op", "register_event", "compile_event",
            "compile_timeline", "apply_op", "apply_budget_cap",
-           "event_to_dict", "event_from_dict", "validate_event"]
+           "event_to_dict", "event_from_dict", "validate_event",
+           "lint_timeline", "registry_findings"]
 
 
 class EngineOps(Protocol):
@@ -172,15 +173,29 @@ class OpSpec:
     apply: Callable[[Any, Any], dict]
 
 
+def _anchor_times(ev) -> List[float]:
+    return [ev.at_h]
+
+
+def _point_times(ev) -> List[float]:
+    return [t for t, _f in ev.points]
+
+
 @dataclass(frozen=True)
 class EventType:
-    """One registered timed-event kind."""
+    """One registered timed-event kind.  ``lint(ev, at,
+    known_providers)`` returns the kind's own findings; ``lint_times``
+    the times the dead-event check reads."""
     kind: str
     cls: type
     compile: Callable[[Any], List[tuple]]  # ev -> [(t, op_kind, arg)]
     ops: Tuple[str, ...]                   # op kinds compile may emit
     decode: Callable[[dict], dict]         # JSON kwargs coercion
     validate: Callable[[Any], None]        # raises ValueError
+    lint: Callable[[Any, str, Optional[set]], List[str]]
+    lint_times: Callable[[Any], List[float]] = _anchor_times
+    is_curve: bool = False                 # multi-point: exempt from the
+    #                                        duplicate-anchor-time lint
 
 
 REGISTRY: Dict[str, EventType] = {}
@@ -323,58 +338,158 @@ register_op(OpSpec("cache_flush", "cache_flush", ("flush_cache",),
                    _apply_cache_flush))
 
 
+# -- the lint rules (ids and messages as the JAX package's) --------------
+
+def _lint_target(ev, at, known_providers):
+    return ([f"SPEC110: {at}: negative target {ev.target}"]
+            if ev.target < 0 else [])
+
+
+def _lint_outage(ev, at, known_providers):
+    out = []
+    if ev.duration_h <= 0:
+        out.append(f"SPEC111: {at}: outage duration must be positive")
+    if ev.resume_target < 0:
+        out.append(f"SPEC112: {at}: negative resume_target "
+                   f"{ev.resume_target}")
+    return out
+
+
+def _lint_factor(ev, at, known_providers):
+    return ([f"SPEC113: {at}: factor must be positive, got {ev.factor}"]
+            if ev.factor <= 0 else [])
+
+
+def _lint_floor(ev, at, known_providers):
+    out = []
+    if not 0.0 <= ev.fraction <= 1.0:
+        out.append(f"SPEC114: {at}: fraction {ev.fraction} "
+                   "outside [0, 1]")
+    if ev.downscale_target < 0:
+        out.append(f"SPEC115: {at}: negative downscale_target "
+                   f"{ev.downscale_target}")
+    return out
+
+
+def _lint_points(ev, at, what: str, bad) -> List[str]:
+    out = []
+    if not ev.points:
+        out.append(f"SPEC116: {at}: empty curve (no points)")
+    pt = None
+    for t, f in ev.points:
+        if bad(f):
+            out.append(f"SPEC117: {at}: {what} {f} at t={t}")
+        if pt is not None and t <= pt:
+            out.append(f"SPEC118: {at}: curve points not strictly "
+                       f"time-sorted ({t} after {pt})")
+        pt = t
+    return out
+
+
+def _lint_price_curve(ev, at, known_providers):
+    out = _lint_points(ev, at, "non-positive price factor",
+                       lambda f: f <= 0)
+    if ev.provider is not None and known_providers is not None \
+            and ev.provider not in known_providers:
+        out.append(f"SPEC119: {at}: unknown provider {ev.provider!r} "
+                   f"(catalog has {sorted(known_providers)})")
+    return out
+
+
+def _lint_workload_curve(ev, at, known_providers):
+    return _lint_points(ev, at, "negative request-rate factor",
+                        lambda f: f < 0)
+
+
+def _lint_origin_provider(provider, at, known_providers) -> List[str]:
+    """The data-plane events' provider must match a catalog provider
+    directly or as the base of a sliced pool (``azure`` covers
+    ``azure/4``)."""
+    if known_providers is None:
+        return []
+    bases = {p.split("/", 1)[0] for p in known_providers}
+    if provider in known_providers or provider in bases:
+        return []
+    return [f"SPEC119: {at}: unknown provider {provider!r} "
+            f"(catalog has {sorted(known_providers)})"]
+
+
+def _lint_origin_outage(ev, at, known_providers):
+    out = []
+    if ev.duration_h <= 0:
+        out.append(f"SPEC111: {at}: outage duration must be positive")
+    return out + _lint_origin_provider(ev.provider, at, known_providers)
+
+
+def _lint_origin_degrade(ev, at, known_providers):
+    return _lint_factor(ev, at, known_providers) + \
+        _lint_origin_provider(ev.provider, at, known_providers)
+
+
+def _lint_cache_flush(ev, at, known_providers):
+    return _lint_origin_provider(ev.provider, at, known_providers)
+
+
 # -- the event registrations -----------------------------------------------
 
 register_event(EventType(
     SetTarget.kind, SetTarget,
     compile=lambda ev: [(ev.at_h, "scale", ev.target)],
-    ops=("scale",), decode=_identity, validate=_no_validate))
+    ops=("scale",), decode=_identity, validate=_no_validate,
+    lint=_lint_target))
 register_event(EventType(
     CEOutage.kind, CEOutage,
     compile=lambda ev: [(ev.at_h, "outage_on", 0),
                         (ev.at_h + ev.duration_h, "outage_off",
                          ev.resume_target)],
     ops=("outage_on", "outage_off"), decode=_identity,
-    validate=_no_validate))
+    validate=_no_validate, lint=_lint_outage))
 register_event(EventType(
     PriceShift.kind, PriceShift,
     compile=lambda ev: [(ev.at_h, "price", ev.factor)],
-    ops=("price",), decode=_identity, validate=_no_validate))
+    ops=("price",), decode=_identity, validate=_no_validate,
+    lint=_lint_factor))
 register_event(EventType(
     BudgetFloor.kind, BudgetFloor,
     compile=lambda ev: [(ev.at_h, "floor",
                          (ev.fraction, ev.downscale_target))],
-    ops=("floor",), decode=_identity, validate=_no_validate))
+    ops=("floor",), decode=_identity, validate=_no_validate,
+    lint=_lint_floor))
 register_event(EventType(
     CapacityShift.kind, CapacityShift,
     compile=lambda ev: [(ev.at_h, "capacity", ev.factor)],
-    ops=("capacity",), decode=_identity, validate=_no_validate))
+    ops=("capacity",), decode=_identity, validate=_no_validate,
+    lint=_lint_factor))
 register_event(EventType(
     PriceCurve.kind, PriceCurve,
     # one op per breakpoint, at its own time
     compile=lambda ev: [(t, "curve", (ev.provider, f))
                         for t, f in ev.points],
-    ops=("curve",), decode=_decode_points, validate=_validate_points))
+    ops=("curve",), decode=_decode_points, validate=_validate_points,
+    lint=_lint_price_curve, lint_times=_point_times, is_curve=True))
 register_event(EventType(
     WorkloadCurve.kind, WorkloadCurve,
     compile=lambda ev: [(t, "workload", f) for t, f in ev.points],
-    ops=("workload",), decode=_decode_points, validate=_validate_points))
+    ops=("workload",), decode=_decode_points, validate=_validate_points,
+    lint=_lint_workload_curve, lint_times=_point_times, is_curve=True))
 register_event(EventType(
     OriginOutage.kind, OriginOutage,
     compile=lambda ev: [(ev.at_h, "origin_on", ev.provider),
                         (ev.at_h + ev.duration_h, "origin_off",
                          ev.provider)],
     ops=("origin_on", "origin_off"), decode=_identity,
-    validate=_no_validate))
+    validate=_no_validate, lint=_lint_origin_outage))
 register_event(EventType(
     OriginDegrade.kind, OriginDegrade,
     compile=lambda ev: [(ev.at_h, "origin_degrade",
                          (ev.provider, ev.factor))],
-    ops=("origin_degrade",), decode=_identity, validate=_no_validate))
+    ops=("origin_degrade",), decode=_identity, validate=_no_validate,
+    lint=_lint_origin_degrade))
 register_event(EventType(
     CacheFlush.kind, CacheFlush,
     compile=lambda ev: [(ev.at_h, "cache_flush", ev.provider)],
-    ops=("cache_flush",), decode=_identity, validate=_no_validate))
+    ops=("cache_flush",), decode=_identity, validate=_no_validate,
+    lint=_lint_cache_flush))
 
 
 Event = Union[SetTarget, CEOutage, PriceShift, BudgetFloor, CapacityShift,
@@ -438,3 +553,67 @@ def validate_event(ev):
     if et is None or type(ev) is not et.cls:
         raise ValueError(f"unknown timeline event {ev!r}")
     et.validate(ev)
+
+
+def lint_timeline(timeline: Sequence, duration_h: float,
+                  known_providers: Optional[set]) -> List[str]:
+    """Static checks over a spec's event timeline: order, dead times and
+    shared anchor times, then every event kind's own rules.  Returns
+    the findings (empty: clean); never raises."""
+    out: List[str] = []
+    prev_t = None
+    seen_times: Dict[float, int] = {}
+    for i, ev in enumerate(timeline):
+        at = f"timeline[{i}] {type(ev).__name__}"
+        et = REGISTRY.get(getattr(ev, "kind", None))
+        if et is None or type(ev) is not et.cls:
+            out.append(f"SPEC101: {at}: unknown timeline event")
+            continue
+        t0 = ev.at_h
+        if t0 < 0:
+            out.append(f"SPEC102: {at}: negative event time {t0}")
+        if prev_t is not None and t0 < prev_t:
+            out.append(f"SPEC103: {at}: event times not sorted "
+                       f"({t0} after {prev_t})")
+        prev_t = max(t0, prev_t) if prev_t is not None else t0
+        # dead events never execute: the anchor of a plain event, every
+        # breakpoint of a curve
+        for t in et.lint_times(ev):
+            if t >= duration_h:
+                out.append(f"SPEC104: {at}: fires at t={t} h, at/after "
+                           f"the campaign end ({duration_h} h) — never "
+                           "executes")
+        if not et.is_curve:
+            seen_times[t0] = seen_times.get(t0, 0) + 1
+        out.extend(et.lint(ev, at, known_providers))
+    for t, n in seen_times.items():
+        if n > 1:
+            out.append(f"SPEC105: timeline: {n} events share t={t} h — "
+                       "they execute in declaration order; split the "
+                       "times if that overlap is unintended")
+    return out
+
+
+def registry_findings(engines: Mapping[str, type]) -> List[str]:
+    """The drift guard: every registered event compiles to registered
+    ops, and every op's required members exist on every engine adapter
+    (REG001 / REG002, the JAX package's rule ids).  Empty: every event
+    runs on every engine."""
+    out: List[str] = []
+    for kind, et in sorted(REGISTRY.items()):
+        for op_kind in et.ops:
+            op = OPS.get(op_kind)
+            if op is None:
+                out.append(f"REG001: event {kind!r}: compiled op "
+                           f"{op_kind!r} has no registered handler")
+                continue
+            for engine, cls in sorted(engines.items()):
+                missing = sorted(a for a in op.requires
+                                 if not hasattr(cls, a))
+                if missing:
+                    out.append(
+                        f"REG002: event {kind!r}: op {op_kind!r} needs "
+                        f"EngineOps member(s) {missing} missing on the "
+                        f"{engine} adapter "
+                        f"({cls.__module__}.{cls.__name__})")
+    return out

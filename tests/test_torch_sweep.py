@@ -11,7 +11,9 @@ tick ops), at reduced duration where the reference allows it:
     ``run_jax(..., use_pallas=False)`` in every lane, and cost and hours
     agree to 1e-5 relative (the f32 sums may associate differently);
   * on its own Philox draws it meets ``STAT_BANDS`` against the
-    bit-identical batched engine;
+    bit-identical batched engine: on a 96 h trio, and (``slow``) on
+    ``default_suite()`` x 8 seeds at full duration (19 specs, 6 engine
+    batches, 1,344 ticks);
   * ``events_fired`` matches the batched engine's records;
   * the data-plane golden spec runs end to end.
 """
@@ -32,10 +34,12 @@ from repro.core.spec import CampaignSpec as JaxSpec
 from repro.core.sweep_jax import JaxSweepEngine, run_jax
 from repro.core.sweep_jax import _prepare as jax_prepare
 from repro_torch.core import api
+from repro_torch.core import scenarios as port_scenarios
 from repro_torch.core.spec import CampaignResult, CampaignSpec
 from repro_torch.core.sweep_result import _prepare
 from repro_torch.core.sweep_torch import (TorchSweepEngine, philox4x32,
                                           philox_uniforms, run_torch)
+from test_torch_train import one_cpu_thread  # noqa: F401
 
 DATA = Path(__file__).parent / "data"
 INT_COUNTERS = ("preemptions", "jobs_finished", "nat_drops")
@@ -177,6 +181,29 @@ def test_own_rng_meets_stat_bands_against_batched():
             assert a["p5"] - margin <= b["p5"] and \
                 b["p95"] <= a["p95"] + margin, (scen, metric, "band", a, b)
 
+
+
+@pytest.mark.slow
+def test_own_rng_meets_stat_bands_on_the_whole_suite():
+    """The full-duration form of the test above: per scenario of
+    ``default_suite()``, the mean and [p5, p95] band within
+    ``STAT_BANDS`` of the batched engine's."""
+    specs = port_scenarios.default_suite()
+    assert [s.to_json() for s in specs] == \
+        [s.to_json() for s in scenarios.default_suite()]
+    seeds = list(range(8))
+    ref = jax_sweep(scenarios.default_suite(), seeds, engine="batched")
+    got = api.sweep(specs, seeds, device="cpu")
+    rs, gs = ref.summary(tuple(STAT_BANDS)), got.summary(tuple(STAT_BANDS))
+    assert list(gs) == list(rs) and len(rs) == 19
+    for scen in rs:
+        for metric, rel in STAT_BANDS.items():
+            a, b = rs[scen][metric], gs[scen][metric]
+            margin = rel * max(abs(a["mean"]), 1e-9)
+            assert abs(b["mean"] - a["mean"]) <= margin, \
+                (scen, metric, "mean", a, b)
+            assert a["p5"] - margin <= b["p5"] and \
+                b["p95"] <= a["p95"] + margin, (scen, metric, "band", a, b)
 
 # -- event provenance ------------------------------------------------------
 

@@ -12,7 +12,9 @@ On the CPU (here):
     ``test_torch_sweep.py``, the data-plane golden spec, a NAT case, a
     case where the budget floor fires, a planted case whose Poisson
     rates pass 8 (the draw's normal branch), one of 40 groups (more than
-    a warp) and one whose cells do not fit in shared memory;
+    a warp) and one whose cells do not fit in shared memory; and every
+    engine batch of ``default_suite()`` and ``pareto_grid()`` (10
+    batches, 2 seeds, full 336 h);
   * fed the JAX engine's draws, its integer counters equal the JAX
     engine's (the planted lam > 8 case on the "ops" route too);
   * the route rule ``ops.sweep_route``, the wrapper's checks, the
@@ -21,8 +23,9 @@ On the CPU (here):
 
 On the card (``cuda``-marked): the fused route against the "ops" and
 plain routes on the same cases, on the engine's own draws and on a
-uniforms hook, and the kernel against its plain version on the packed
-arguments.  The module imports neither JAX nor the JAX package at the
+uniforms hook, the kernel against its plain version on the packed
+arguments, and on each planning batch the fused route against the plain
+route.  The module imports neither JAX nor the JAX package at the
 top, so the card's machine (no JAX) runs it with ``--noconftest``:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda \\
@@ -36,13 +39,14 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import api
+from repro_torch.core import api, scenarios
 from repro_torch.core.spec import (PAPER_TIMELINE, CampaignSpec,
                                    ProviderSpec, RegionSpec, SetTarget,
                                    WorkloadCurve, paper_spec)
 from repro_torch.core.sweep_result import _prepare
 from repro_torch.core.sweep_torch import TorchSweepEngine, run_torch
 from repro_torch.kernels import ops, ref
+from test_torch_train import one_cpu_thread  # noqa: F401
 
 DATA = Path(__file__).parent / "data"
 CSRC = Path(__file__).parents[1] / "src" / "repro_torch" / "kernels" / "csrc"
@@ -194,6 +198,57 @@ def test_sweep_ref_equals_eager_engine(case):
             assert eager.nat_any and (eager.out["nat_ct"] > 0).all()
         if case == "dataplane":
             assert eager.dp_staging and (eager.out["egress_g"] > 0).any()
+
+
+# every engine batch of the planning library, at full duration (336 h),
+# so that each batch is compared after its last timeline event
+PLANNING_SEEDS = (0, 1)
+
+
+def _planning_batches():
+    """label -> the lanes of one engine batch, for every batch of
+    ``default_suite()`` ("suite-i") and ``pareto_grid()`` ("pareto-i")."""
+    out = {}
+    for tag, lib in (("suite", scenarios.default_suite),
+                     ("pareto", scenarios.pareto_grid)):
+        batches = {}
+        for spec in lib():
+            for seed in PLANNING_SEEDS:
+                key, lane = _prepare(spec, seed)
+                batches.setdefault(repr(key), []).append(lane)
+        out.update({f"{tag}-{i}": lanes
+                    for i, lanes in enumerate(batches.values())})
+    return out
+
+
+PLANNING_BATCHES = _planning_batches()
+
+
+def test_planning_library_spans_ten_engine_batches():
+    assert sorted(PLANNING_BATCHES) == [f"pareto-{i}" for i in range(4)] + \
+        [f"suite-{i}" for i in range(6)]
+    names = {lane.spec.name for lanes in PLANNING_BATCHES.values()
+             for lane in lanes}
+    assert len(names) == 19 + 12
+
+
+@pytest.mark.parametrize("batch", sorted(PLANNING_BATCHES))
+def test_sweep_ref_equals_eager_engine_on_planning_batches(batch):
+    """Integer fields and flags exactly, f32 fields within 1e-6
+    relative, on each batch of the planning library."""
+    lanes = PLANNING_BATCHES[batch]
+    eager = TorchSweepEngine(lanes, device="cpu")
+    eager.run()
+    assert eager.route == "ops"
+    fused = TorchSweepEngine(lanes, device="cpu")
+    ops.reset_launches()
+    with ops._force_route("campaign_sweep", "fused"):
+        fused.run()
+    assert fused.route == "fused"
+    assert not any(ops.LAUNCHES.values())           # CPU: the plain version
+    _assert_state_equal(fused.out, eager.out, rel=1e-6)
+    for b in range(eager.B):
+        assert fused.lane_events(b) == eager.lane_events(b)
 
 
 def test_planted_case_reaches_the_normal_branch(monkeypatch):
@@ -429,3 +484,25 @@ def test_fused_kernel_equals_plain_version_on_packed_args(cuda, case):
         _assert_state_equal({k: v.cpu().numpy() for k, v in got.items()},
                             {k: v.cpu().numpy() for k, v in want.items()},
                             rel=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", sorted(PLANNING_BATCHES))
+def test_fused_route_equals_plain_route_on_planning_batches(cuda, batch):
+    """One fused launch a batch; every lane's integer counters,
+    by_provider and fired events equal the plain route's, cost,
+    accelerator hours and egress within 1e-5 relative."""
+    lanes = PLANNING_BATCHES[batch]
+    ops.reset_launches()
+    fused = TorchSweepEngine(lanes, device=cuda).run()
+    assert ops.LAUNCHES["campaign_sweep"] == 1
+    assert sum(ops.LAUNCHES.values()) == 1           # no per-op launch
+    plain = TorchSweepEngine(lanes, device=cuda, use_kernels=False).run()
+    assert plain.route == "plain" and sum(ops.LAUNCHES.values()) == 1
+    for b in range(fused.B):
+        a, w = fused.lane_results(b), plain.lane_results(b)
+        for k in INT_COUNTERS + ("by_provider",):
+            assert a[k] == w[k], (batch, b, k)
+        assert fused.lane_events(b) == plain.lane_events(b)
+        for k in ("cost", "accel_hours", "egress_usd"):
+            assert a[k] == pytest.approx(w[k], rel=1e-5), (batch, b, k)
