@@ -114,11 +114,11 @@ Phases (any failure raises and exits non-zero with no result line):
              computes it) and the design's own state-scratch traffic (C
              entering every chunk written and read: bf16 on wgmma, f32 on
              simt);
- 14. xlstm   the jamba weights freed, xlstm-350m at full width and depth
-             (24 layers: 21 mLSTM + 3 sLSTM, 530.2 M f32 parameters, random
+ 14. xlstm   the jamba weights freed, xlstm-350m at full width, cut to
+             one super-block (8 of 24 layers: 7 mLSTM + 1 sLSTM; random
              from the port's init_params): forward_loss at B=2, S=4096 in
              bf16 and B=1, S=4096 in f32, through the kernel
-             (attention_impl="pallas": 21 mlstm_chunk launches, all on the
+             (attention_impl="pallas": 7 mlstm_chunk launches, all on the
              wgmma route in bf16 and on the simt route in f32) and through
              the chunked reference path: finite loss within 2.0 of ln
              50304, kernel vs reference within 1e-2 (bf16) / 1e-4 (f32)
@@ -134,7 +134,7 @@ Phases (any failure raises and exits non-zero with no result line):
              1e-4, parameters within 2 x the summed learning rates;
              b) yi-9b at full width, 4 of 48 layers (1.229 B f32
              parameters: the whole depth's f32 train state would not fit
-             80 GB), the Trainer at B=2, S=4096, grad_accum 2, remat, 6
+             80 GB), the Trainer at B=2, S=4096, grad_accum 2, remat, 4
              timed steps and one profiled: losses finite and within 2.0
              of ln 64000, step 0's loss the mean of forward_loss on its
              two microbatches within 1e-6 and of the flash kernel's
@@ -142,8 +142,8 @@ Phases (any failure raises and exits non-zero with no result line):
              train tokens/s, peak memory, the device's busy share;
              c) the same in bf16 (bf16 parameters, the f32 master), B=4,
              tolerances 1e-2; d) the preemption round trip on b)'s model
-             (save_blocking at step 2, save_async at step 4, a new
-             Trainer resumes at 4, restore 2 and rerun 3-4: parameters
+             cut to one layer (save_blocking at step 2, save_async at
+             step 4, a new Trainer resumes at 4, restore 2 and rerun 3-4: parameters
              within rtol = atol = 1e-6 of the uninterrupted run's, bitwise
              equality reported), with the checkpoint's bytes, the save,
              restore and async-blocking seconds; a ``[train] {...}`` line
@@ -232,7 +232,7 @@ Phases (any failure raises and exits non-zero with no result line):
              (256 ranks: no data moves, so no value is compared) on real
              bf16 shards of yi-9b train_4k at full width and depth (48
              layers, 16 rows a rank, grad_accum 8, remat): a warm-up and
-             two timed steps, ``max_memory_allocated`` within 15 % of the
+             a timed step, ``max_memory_allocated`` within 15 % of the
              dry run's peak for the cell
              (``artifacts/dryrun_torch/dryrun_yi-9b_train_4k_no.json``),
              ``FlopCounterMode``'s dot FLOPs equal to the dry run's; s a
@@ -250,15 +250,34 @@ Phases (any failure raises and exits non-zero with no result line):
              rank's); c) in the same subprocess, rank 0 of (16, 16) on
              real bf16 shards of jamba-v0.1-52b train_4k at full width,
              cut to one super-block (8 of 32 layers), its Mamba split over
-             "model" (the rank's 512 of d_inner 8,192): a warm-up and a
-             timed step, ``max_memory_allocated``
+             "model" (the rank's 512 of d_inner 8,192): a timed step,
+             ``max_memory_allocated``
              within 15 % of the dry run of the same cut cell
              (``artifacts/dryrun_torch/dryrun_jamba-v0.1-52b_train_4k_no_
              8L.json``), dot FLOPs equal to its, no sub-block computed
              whole; then its pallas mesh prefill, B=32 S=4096: flash 1
-             and ``moe_gmm`` 12 launches (4 ``moe_sharded`` calls).
+             and ``moe_gmm`` 12 launches (4 ``moe_sharded`` calls); b)
+             again, the archs whose heads (16, 16)'s "model" does not
+             divide: xlstm-350m train_4k at full width, one super-block
+             (8 of 24 layers: the mLSTM split on dh, the sLSTM's
+             recurrence whole), its 16 rows a rank in one microbatch
+             (grad_accum 1: the sLSTM's step loop once), one step under
+             ``FlopCounterMode``, held as c) to its cut cell's dry run
+             (the whole set {"slstm_recurrence"}); the mesh prefills of
+             xlstm-350m, minicpm3-4b (MLA on query rows) and
+             whisper-large-v3 (attention and cross-attention on query
+             rows; flash twice a decoder layer, on the rank's two chunks
+             of rows with their q_offset) at full width, 8 layers
+             (whisper's decoder), B=32 S=4096, the batch as the rank's
+             DTensor rows: launches as expected, dot FLOPs equal to the
+             cut cell's dry run and ``max_memory_allocated`` within 15 %
+             of its peak (whisper's counted on the reference path, its
+             flash launches on the pallas one).
              Phase 6 gains the flash case at a rank's heads
-             (``yi-9b-tp16``: B=2, S=4096, H=2, Hkv=1, D=128), phase 9
+             (``yi-9b-tp16``: B=2, S=4096, H=2, Hkv=1, D=128) and at a
+             rank's share of whisper's rows (``whisper-tp16``: B=2, 512
+             queries at q_offset 3,584 against 4,096 keys, H=Hkv=5,
+             D=64, the model layout's q_offset), phase 9
              the moe_gmm cases at a rank's experts (``qwen3-tp16-up`` /
              ``-down``: E=8, C=12,800, D=2048, F=48 and back;
              ``jamba-tp16-up`` / ``-down``: E=1, C=25,600, D=4096, F=896
@@ -917,6 +936,12 @@ FLASH_CASES = [
     # a "model" rank's heads of yi-9b on the (16, 16) mesh (phase 23):
     # 2 q heads reading 1 kv head
     ("yi-9b-tp16", True, (2, 4096, 4096, 2, 1, 128, True), {}),
+    # a (16, 16) rank's share of whisper's decoder self-attention in its
+    # mesh prefill (phase 23 b, S=4096): its group of 5 of 20 heads, its
+    # later chunk of query rows (of 8 chunks of 512) against every key
+    # before it, through the model layout's q_offset
+    ("whisper-tp16", True, (2, 512, 4096, 5, 5, 64, True),
+     {"q_offset": 3584}),
 ]
 
 
@@ -971,14 +996,21 @@ def check_flash(dev) -> dict:
                 one = torch.ones(D, device=dev)
                 q, k = rms_head_norm(q, one), rms_head_norm(k, one)
             if model:
+                q_off = kw.get("q_offset", 0)
+
                 def kern():
-                    return ops.flash_attention(q, k, v, causal=causal)
+                    return ops.flash_attention(q, k, v, causal=causal,
+                                               q_offset=q_off)
 
                 def plain():
-                    return ref.flash_attention_model_ref(q, k, v,
-                                                         causal=causal)
+                    return ref.flash_attention_model_ref(
+                        q, k, v, causal=causal, q_offset=q_off)
                 qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
                 mask = None
+                if q_off:
+                    kpos = torch.arange(Skv, device=dev)
+                    mask = (q_off + torch.arange(Sq, device=dev)[:, None]
+                            >= kpos[None, :])
             else:
                 def kern():
                     return ops.flash_attention_kernel(q, k, v, **kw)
@@ -1712,9 +1744,9 @@ def check_mlstm(dev) -> dict:
 # -- phases 14 and 15: the xlstm-350m model path ----------------------------
 
 def xlstm_forward_phase(params, cfg, dev) -> dict:
-    """forward_loss at full width and depth through the mlstm_chunk
-    kernel (the resolver's hooks for attention_impl="pallas") and the
-    chunked reference path, in bf16 (B=2) and f32 (B=1); per dtype the
+    """forward_loss at full width (``XLSTM_LAYERS`` deep) through the
+    mlstm_chunk kernel (the resolver's hooks for attention_impl="pallas")
+    and the chunked reference path, in bf16 (B=2) and f32 (B=1); per dtype the
     losses, times and launches, and from the bf16 kernel forward's
     profile (the only one) the device ms per mlstm_chunk call."""
     from repro_torch.configs import REDUCED_SHAPE, RunConfig
@@ -1805,7 +1837,7 @@ TRAIN_ARCHS = ("whisper-large-v3", "qwen3-moe-30b-a3b", "kimi-k2-1t-a32b",
 # yi-9b at full width, 4 of its 48 layers: 48 layers' f32 train state
 # (params + grads + mu + nu, ~141 GB) would not fit the card's 80 GB
 TRAIN_LAYERS = 4
-TRAIN_STEPS = 6
+TRAIN_STEPS = 4
 
 
 def train_vs_cpu(dev) -> None:
@@ -1959,8 +1991,11 @@ def _dir_bytes(path: Path) -> int:
     return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
 
 
+PREEMPT_LAYERS = 1             # d)'s depth: the checkpoints' disk time
+
+
 def preemption_round_trip(dev) -> dict:
-    """d) on the model of b) (f32, full width, TRAIN_LAYERS deep): train
+    """d) on the model of b) (f32, full width) cut to PREEMPT_LAYERS: train
     4 steps with a save_blocking at step 2 and a save_async at step 4; a
     new Trainer on the directory restores step 4 (the latest); restore
     step 2, run steps 3-4; the parameters equal the uninterrupted run's
@@ -1977,7 +2012,7 @@ def preemption_round_trip(dev) -> dict:
     ckpt.mkdir(parents=True)
     cfg, shape, run = train.build("yi-9b", reduced=False, batch=2, seq=4096,
                                   grad_accum=2)
-    cfg = replace(cfg, num_layers=TRAIN_LAYERS)
+    cfg = replace(cfg, num_layers=PREEMPT_LAYERS)
     need = 2 * 3 * 4 * param_count(train.init_params(cfg, 0,
                                                      device="meta"))
     free = shutil.disk_usage(ckpt).free
@@ -1985,8 +2020,8 @@ def preemption_round_trip(dev) -> dict:
     if free < 1.2 * need:
         log(f"[train] preemption: {free / 1e9:.1f} GB free, two "
             f"checkpoints need {need / 1e9:.1f} GB: the round trip runs "
-            f"on reduced yi-9b, {TRAIN_LAYERS} layers, instead")
-        cfg = replace(get_reduced("yi-9b"), num_layers=TRAIN_LAYERS)
+            f"on reduced yi-9b, {PREEMPT_LAYERS} layers, instead")
+        cfg = replace(get_reduced("yi-9b"), num_layers=PREEMPT_LAYERS)
         model = "reduced"
     run = run.replace(model=cfg)
     try:
@@ -2035,7 +2070,8 @@ def preemption_round_trip(dev) -> dict:
            save_s, "save_async_blocks_s": async_block_s,
            "save_async_total_s": async_total_s, "restore_s": restore_s,
            "max_abs_err": err, "bitwise": bitwise}
-    log(f"[train] preemption round trip ({model}, f32): checkpoint "
+    log(f"[train] preemption round trip ({model}, {PREEMPT_LAYERS} "
+        f"layer(s), f32): checkpoint "
         f"{nbytes / 1e9:.2f} GB (params + mu + nu), save_blocking "
         f"{save_s:.2f} s, save_async blocks the step {async_block_s:.2f} s "
         f"(written after {async_total_s:.2f} s), restore {restore_s:.2f} "
@@ -2751,6 +2787,31 @@ TP_ARTIFACT = "artifacts/dryrun_torch/dryrun_yi-9b_train_4k_no.json"
 JAMBA_LAYERS = 8
 JAMBA_TP_ARTIFACT = ("artifacts/dryrun_torch/dryrun_jamba-v0.1-52b_train_4k_"
                      f"no_{JAMBA_LAYERS}L.json")
+# b) the archs whose heads (16, 16)'s "model" does not divide: xlstm-350m
+# train_4k cut to one super-block with its 16 rows a rank in one
+# microbatch (XLSTM_ACCUM: its sLSTM's 4,096-step loop runs once, not
+# once a microbatch), and the mesh prefills (B=32, S=4,096, as
+# TP16_PREFILLS) of xlstm-350m, minicpm3-4b and whisper-large-v3 cut to
+# TP16_SPLIT_LAYERS (whisper's decoder; its encoder's 32 stay), each held
+# to its dry run (``python -m repro_torch.launch.dryrun --arch A --shape
+# train_4k --layers 8 --grad-accum 1`` / ``--shape prefill_32k --layers 8
+# --seq-len 4096``, ``--device cpu --out artifacts/dryrun_torch``): (arch,
+# the kernels' launches expected: flash twice a whisper decoder layer, on
+# the rank's two chunks of query rows)
+XLSTM_LAYERS = 8
+XLSTM_ACCUM = 1
+TP16_SPLIT_LAYERS = 8
+TP16_SEQ = 4096
+TP16_SPLIT_PREFILLS = (
+    ("xlstm-350m", {"flash_attention": 0, "moe_gmm": 0}),
+    ("minicpm3-4b", {"flash_attention": 0, "moe_gmm": 0}),
+    ("whisper-large-v3", {"flash_attention": 2 * TP16_SPLIT_LAYERS,
+                          "moe_gmm": 0}))
+
+
+def cut_artifact(arch, shape, layers, suffix="") -> str:
+    return (f"artifacts/dryrun_torch/dryrun_{arch}_{shape}_no_{layers}L"
+            f"{suffix}.json")
 
 
 def _one_rank_mesh():
@@ -2929,6 +2990,25 @@ def tp_prefill_check(dev, smi, arch, layers, expect) -> dict:
     return res
 
 
+def rank0_place(tree, shardings, mesh, fill):
+    """DTensors placed by ``shardings`` on ``mesh`` (torch's fake group)
+    over rank 0's pieces of ``tree``'s meta leaves, each made by
+    ``fill(shape, dtype)``."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.tree import map_tree
+
+    def one(t, ns):
+        local = list(t.shape)
+        for size, pl in zip(mesh.mesh.shape, ns.placements):
+            if pl.is_shard():
+                local[pl.dim] //= int(size)
+        x = fill(local, t.dtype)
+        return DTensor.from_local(x, mesh, ns.placements, run_check=False,
+                                  shape=tuple(t.shape), stride=t.stride())
+    return map_tree(one, tree, shardings)
+
+
 def rank0_state(cfg, mesh, dev, with_opt: bool = True):
     """Rank 0's real bf16 shards of ``cfg``'s parameters (random, seeded)
     and (``with_opt``; else None) zeroed AdamW state with the f32
@@ -2942,30 +3022,19 @@ def rank0_state(cfg, mesh, dev, with_opt: bool = True):
 
     gen = torch.Generator(device=dev).manual_seed(2021)
 
-    def place(tree, shardings, fill):
-        def one(t, ns):
-            local = list(t.shape)
-            for size, pl in zip(mesh.mesh.shape, ns.placements):
-                if pl.is_shard():
-                    local[pl.dim] //= int(size)
-            x = fill(local, t.dtype)
-            return DTensor.from_local(x, mesh, ns.placements,
-                                      run_check=False, shape=tuple(t.shape),
-                                      stride=t.stride())
-        return map_tree(one, tree, shardings)
-
     def rand(shape_, dt):
         return (torch.randn(shape_, generator=gen, device=dev) * 0.02).to(dt)
 
     pstruct = st.params_struct(cfg, torch.bfloat16)
-    params = place(pstruct, sh.param_shardings(pstruct, mesh), rand)
+    params = rank0_place(pstruct, sh.param_shardings(pstruct, mesh), mesh,
+                         rand)
     if not with_opt:
         return params, None, sum(x.to_local().numel()
                                  * x.to_local().element_size()
                                  for x in leaves_of(params))
     ostruct = st.opt_struct(cfg, pstruct)
-    opt = place(ostruct, sh.opt_shardings(ostruct, mesh),
-                lambda s_, dt: torch.zeros(s_, dtype=dt, device=dev))
+    opt = rank0_place(ostruct, sh.opt_shardings(ostruct, mesh), mesh,
+                      lambda s_, dt: torch.zeros(s_, dtype=dt, device=dev))
     with torch.no_grad():
         for d, m in zip(leaves_of(params), leaves_of(opt["master"])):
             m.to_local().copy_(d.to_local())
@@ -3032,7 +3101,7 @@ def tp_rank0_part(out: str) -> int:
     group (256 ranks) on the card, yi-9b train_4k at full width and
     depth (48 layers, B=256 global: 16 rows a rank, grad_accum 8, remat,
     bf16 with the f32 master) on the rank's real shards
-    (``rank0_state``): one warm-up and two timed ``make_mesh_train_step``
+    (``rank0_state``): one warm-up and one timed ``make_mesh_train_step``
     steps, their ``max_memory_allocated`` (arguments included) and
     seconds, then ``FlopCounterMode`` over one more step; then the mesh
     prefills of ``TP16_PREFILLS`` (``tp_rank0_prefill``).  The fake
@@ -3055,7 +3124,7 @@ def tp_rank0_part(out: str) -> int:
     params, opt, args = rank0_state(cfg, mesh, dev)
     step = st.make_mesh_train_step(cfg, run, mesh)
     secs, peaks = [], []
-    for i in range(3):
+    for i in range(2):
         batch = make_batch(cfg, shape, i, seed=7, device=dev)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3077,25 +3146,32 @@ def tp_rank0_part(out: str) -> int:
         one sends: the received slot indices stay in range."""
         out_.copy_(x)
     torch.distributed.all_to_all_single = a2a_own
-    jamba = tp_rank0_jamba(mesh, dev)
+    jamba = tp_rank0_train("jamba-v0.1-52b", JAMBA_LAYERS, mesh, dev)
     prefill = {arch: tp_rank0_prefill(arch, layers, expect, mesh, dev)
                for arch, layers, expect in TP16_PREFILLS}
+    xlstm = tp_rank0_train("xlstm-350m", XLSTM_LAYERS, mesh, dev, steps=0,
+                           grad_accum=XLSTM_ACCUM)
+    split = {arch: tp_rank0_split_prefill(arch, expect, mesh, dev)
+             for arch, expect in TP16_SPLIT_PREFILLS}
     Path(out).write_text(json.dumps({
         "dot_flops": int(fc.get_total_flops()), "peaks": peaks,
         "step_s": secs, "argument_bytes": args, "whole": whole,
         "model_flops_rank": model_flops(cfg, shape) / 256,
-        "jamba": jamba, "prefill": prefill}))
+        "jamba": jamba, "prefill": prefill, "xlstm": xlstm,
+        "split_prefill": split}))
     return 0
 
 
-def tp_rank0_jamba(mesh, dev) -> dict:
-    """c) rank 0 of (16, 16): jamba-v0.1-52b train_4k at full width, one
-    super-block (``JAMBA_LAYERS`` of 32 layers), 16 rows a rank,
-    grad_accum 8, remat, bf16 with the f32 master, on the rank's real
-    shards: a warm-up and a timed ``make_mesh_train_step`` step with
-    their ``max_memory_allocated``, then ``FlopCounterMode`` over one
-    more; the sub-blocks computed whole.  Torch's fake group moves no
-    data (its all-to-all the rank's own buffer, ``tp_rank0_part``)."""
+def tp_rank0_train(arch, layers, mesh, dev, steps=1,
+                   grad_accum=None) -> dict:
+    """c) (jamba-v0.1-52b) and b) (xlstm-350m) rank 0 of (16, 16):
+    train_4k at full width, one super-block (``layers`` layers), 16 rows
+    a rank, grad_accum 8 (or ``grad_accum``), remat, bf16 with the f32
+    master, on the rank's real shards: ``steps`` timed
+    ``make_mesh_train_step`` steps, then ``FlopCounterMode`` over one
+    more, each with its ``max_memory_allocated``; the sub-blocks
+    computed whole.  Torch's fake group moves no data (its all-to-all
+    the rank's own buffer, ``tp_rank0_part``)."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.analysis.roofline import model_flops
@@ -3103,13 +3179,15 @@ def tp_rank0_jamba(mesh, dev) -> dict:
     from repro_torch.data import make_batch
     from repro_torch.launch import steps as st
 
-    cfg = replace(get_config("jamba-v0.1-52b"), num_layers=JAMBA_LAYERS)
+    cfg = replace(get_config(arch), num_layers=layers)
     shape = get_shape("train_4k")
+    if grad_accum:
+        shape = replace(shape, grad_accum=grad_accum)
     run = RunConfig(model=cfg, shape=shape)
     params, opt, args = rank0_state(cfg, mesh, dev)
     step = st.make_mesh_train_step(cfg, run, mesh)
     secs, peaks = [], []
-    for i in range(2):
+    for i in range(steps):
         batch = make_batch(cfg, shape, i, seed=7, device=dev)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3118,16 +3196,83 @@ def tp_rank0_jamba(mesh, dev) -> dict:
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         peaks.append(torch.cuda.max_memory_allocated())
-    batch = make_batch(cfg, shape, 2, seed=7, device=dev)
+    batch = make_batch(cfg, shape, steps, seed=7, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     with FlopCounterMode(display=False) as fc:
         step(params, opt, batch)
     torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
+    peaks.append(torch.cuda.max_memory_allocated())
     whole = sorted(step.whole)
     del params, opt, step, batch
     torch.cuda.empty_cache()
     return {"dot_flops": int(fc.get_total_flops()), "peaks": peaks,
-            "step_s": secs, "argument_bytes": args, "whole": whole,
-            "model_flops_rank": model_flops(cfg, shape) / 256}
+            "step_s": secs, "counted_s": counted_s, "argument_bytes": args,
+            "whole": whole, "model_flops_rank": model_flops(cfg, shape) / 256}
+
+
+def tp_rank0_split_prefill(arch, expect, mesh, dev) -> dict:
+    """b) rank 0 of (16, 16): ``make_mesh_prefill_step`` of ``arch`` at
+    full width, ``TP16_SPLIT_LAYERS`` layers, B=32 S=``TP16_SEQ`` (2 rows
+    a rank), bf16, on the rank's real shards and its
+    rows of the batch (DTensors placed by ``batch_shardings``, as the
+    dry run places them): with attention_impl="pallas" (the launch
+    counts set to 0 just before, read just after) and, where it launches
+    flash, again on the reference path; the reference path's run under
+    ``FlopCounterMode`` with its ``max_memory_allocated`` (the pallas
+    run's where the two are one path); the sub-blocks computed whole."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import sharding as sh
+    from repro_torch.configs import RunConfig, get_config, get_shape
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as st
+
+    cfg = replace(get_config(arch), num_layers=TP16_SPLIT_LAYERS)
+    shape = replace(get_shape("prefill_32k"), seq_len=TP16_SEQ)
+    params, _, args = rank0_state(cfg, mesh, dev, with_opt=False)
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def fill(shape_, dt):
+        if dt == torch.int32:
+            return torch.randint(0, cfg.vocab_size, shape_, generator=gen,
+                                 device=dev, dtype=dt)
+        return torch.randn(shape_, generator=gen, device=dev).to(dt)
+    specs = st.input_specs(cfg, shape, st.BF16)
+    batch = rank0_place(specs, sh.batch_shardings(specs, mesh), mesh, fill)
+    args += sum(x.to_local().numel() * x.to_local().element_size()
+                for x in leaves_of(batch))
+    out = {"expect": expect, "argument_bytes": args,
+           "depth": f"{cfg.num_layers} of {get_config(arch).num_layers} "
+                    "layers"}
+    impls = ("pallas", "reference") if expect["flash_attention"] \
+        else ("pallas",)
+    for impl in impls:
+        run = RunConfig(model=cfg, shape=shape, attention_impl=impl)
+        step = st.make_mesh_prefill_step(cfg, run, mesh)
+        counted = impl == impls[-1]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with torch.no_grad(), (FlopCounterMode(display=False) if counted
+                               else contextlib.nullcontext()) as fc:
+            logits, caches = step(params, batch)
+        torch.cuda.synchronize()
+        out[f"{impl}_s"] = time.perf_counter() - t0
+        if impl == "pallas":
+            out["launches"] = {k: ops.LAUNCHES[k] for k in expect}
+            out["logits_local"] = list(logits.to_local().shape)
+        if counted:
+            out["dot_flops"] = int(fc.get_total_flops())
+            out["peak"] = torch.cuda.max_memory_allocated()
+            out["whole"] = sorted(step.whole)
+        del logits, caches, step
+    del params, batch
+    torch.cuda.empty_cache()
+    return out
 
 
 def leaves_of(tree) -> list:
@@ -3197,14 +3342,18 @@ def tp_phase(dev, smi: str) -> dict:
         f"GB, the dry run's peak {want_peak / 1e9:.3f} GB "
         f"({100 * rel:+.2f} %, tol {100 * PEAK_TOL:.0f} %); dot FLOPs "
         f"{b['dot_flops']:.6e} (FlopCounterMode; equal to the dry run's); "
-        f"step s {[round(x, 4) for x in b['step_s']]}, median of the last "
-        f"2 {step_s:.4f} s; the rank's model FLOPs / (step s x "
+        f"step s {[round(x, 4) for x in b['step_s']]}, the last "
+        f"{step_s:.4f} s; the rank's model FLOPs / (step s x "
         f"{PEAK_FLOPS / 1e12:.1f} TFLOP/s) "
         f"{b['model_flops_rank'] / (step_s * PEAK_FLOPS):.4f}, dot FLOPs "
         f"{b['dot_flops'] / (step_s * PEAK_FLOPS):.4f}; whole over "
         f"\"model\": {b['whole'] or 'none'} ({b['wall_s']:.1f} s with the "
         f"process) | {smi}")
     jamba_check(b["jamba"], smi)
+    jamba_check(b["xlstm"], smi, "xlstm-350m", XLSTM_LAYERS, "b)",
+                ("slstm_recurrence",), XLSTM_ACCUM)
+    for arch, _ in TP16_SPLIT_PREFILLS:
+        split_prefill_check(arch, b["split_prefill"][arch], smi)
     for arch, layers, expect in TP16_PREFILLS:
         pre = b["prefill"][arch]
         want_shape = [TP16_BATCH // 16, 1, padded_vocab(arch) // 16]
@@ -3227,37 +3376,91 @@ def tp_phase(dev, smi: str) -> dict:
     return out
 
 
-def jamba_check(j, smi) -> None:
-    """c)'s gates: the peak within PEAK_TOL of the cut cell's dry run,
-    the dot FLOPs equal to its, no sub-block computed whole."""
+def jamba_check(j, smi, arch="jamba-v0.1-52b", layers=JAMBA_LAYERS,
+                part="c)", whole=(), accum=8) -> None:
+    """c)'s gates (and b)'s for xlstm-350m): the peak of the steps after
+    the first within PEAK_TOL of the cut cell's dry run (its dry run at
+    ``accum`` microbatches), the dot FLOPs equal to its, nothing
+    computed whole but ``whole`` (the sLSTM's recurrence), as in the dry
+    run."""
     from repro_torch.analysis.roofline import PEAK_FLOPS
+    from repro_torch.configs import get_config
 
-    predicted = json.loads((ROOT / JAMBA_TP_ARTIFACT).read_text())[0]
-    peak = max(j["peaks"][1:])
+    suffix = "" if accum == 8 else f"_ga{accum}"
+    predicted = json.loads((ROOT / cut_artifact(arch, "train_4k", layers,
+                                                suffix)).read_text())[0]
+    peak = max(j["peaks"][1:] or j["peaks"])
     want_peak = predicted["memory"]["peak_bytes"]
     rel = want_peak / peak - 1
     want_flops = predicted["counted"]["dot_flops"]
-    if j["dot_flops"] != want_flops or abs(rel) > PEAK_TOL or j["whole"] \
-            or predicted["tp_whole"]:
-        fail(f"tp c) rank 0 of (16, 16) jamba {JAMBA_LAYERS} layers: dot "
+    if j["dot_flops"] != want_flops or abs(rel) > PEAK_TOL or \
+            j["whole"] != list(whole) or predicted["tp_whole"] != list(whole):
+        fail(f"tp {part} rank 0 of (16, 16) {arch} {layers} layers: dot "
              f"FLOPs {j['dot_flops']} vs the dry run's {want_flops}; peak "
              f"{peak / 1e9:.3f} GB vs predicted {want_peak / 1e9:.3f} GB "
              f"({100 * rel:+.1f} %, tol {100 * PEAK_TOL:.0f} %); whole "
-             f"{j['whole']} (dry run {predicted['tp_whole']}), want none")
-    step_s = j["step_s"][-1]
-    log(f"[tp] c) rank 0 of (16, 16) on real tensors (fake group: no value "
-        f"compared), jamba-v0.1-52b train_4k full width, {JAMBA_LAYERS} of "
-        f"32 layers, 16 rows a rank, grad_accum 8, remat, bf16: arguments "
-        f"{j['argument_bytes'] / 1e9:.3f} GB; max_memory_allocated "
-        f"{[round(x / 1e9, 3) for x in j['peaks']]} GB, the cut cell's dry "
-        f"run {want_peak / 1e9:.3f} GB ({100 * rel:+.2f} %, tol "
-        f"{100 * PEAK_TOL:.0f} %); dot FLOPs {j['dot_flops']:.6e} (equal "
-        f"to the dry run's); step s {[round(x, 4) for x in j['step_s']]}, "
-        f"{step_s:.4f} s a step (the second); the rank's model FLOPs / "
-        f"(step s x {PEAK_FLOPS / 1e12:.1f} TFLOP/s) "
+             f"{j['whole']} (dry run {predicted['tp_whole']}), want "
+             f"{list(whole)}")
+    # no timed step: the counted one's seconds, FlopCounterMode's cost in
+    step_s = j["step_s"][-1] if j["step_s"] else j["counted_s"]
+    log(f"[tp] {part} rank 0 of (16, 16) on real tensors (fake group: no "
+        f"value compared), {arch} train_4k full width, {layers} of "
+        f"{get_config(arch).num_layers} layers, 16 rows a rank, grad_accum "
+        f"{accum}, remat, bf16: arguments {j['argument_bytes'] / 1e9:.3f} GB; "
+        f"max_memory_allocated {[round(x / 1e9, 3) for x in j['peaks']]} "
+        f"GB, the cut cell's dry run {want_peak / 1e9:.3f} GB "
+        f"({100 * rel:+.2f} %, tol {100 * PEAK_TOL:.0f} %); dot FLOPs "
+        f"{j['dot_flops']:.6e} (equal to the dry run's); step s "
+        f"{[round(x, 4) for x in j['step_s']]}, {step_s:.4f} s a step (the "
+        f"last timed; {j['counted_s']:.1f} s under FlopCounterMode); the "
+        f"rank's "
+        f"model FLOPs / (step s x {PEAK_FLOPS / 1e12:.1f} TFLOP/s) "
         f"{j['model_flops_rank'] / (step_s * PEAK_FLOPS):.4f}, dot FLOPs "
         f"{j['dot_flops'] / (step_s * PEAK_FLOPS):.4f}; whole over "
-        f"\"model\": none | {smi}")
+        f"\"model\": {list(whole) or 'none'} | {smi}")
+
+
+def split_prefill_check(arch, pre, smi) -> None:
+    """b)'s gates of a mesh prefill of ``TP16_SPLIT_PREFILLS``: the
+    launches expected, the local logits' shape, the reference run's dot
+    FLOPs equal to the cut cell's dry run and its peak within PEAK_TOL of
+    it, nothing computed whole but what the dry run names (the sLSTM's
+    recurrence)."""
+    predicted = json.loads((ROOT / cut_artifact(
+        arch, "prefill_32k", TP16_SPLIT_LAYERS, f"_S{TP16_SEQ}"))
+        .read_text())[0]
+    want_peak = predicted["memory"]["peak_bytes"]
+    rel = want_peak / pre["peak"] - 1
+    want_flops = predicted["counted"]["dot_flops"]
+    want_shape = [TP16_BATCH // 16, 1, padded_vocab(arch) // 16]
+    whole = ["slstm_recurrence"] if arch == "xlstm-350m" else []
+    if pre["launches"] != pre["expect"] or pre["logits_local"] != \
+            want_shape or pre["dot_flops"] != want_flops or \
+            abs(rel) > PEAK_TOL or pre["whole"] != whole or \
+            predicted["tp_whole"] != whole:
+        fail(f"tp b) rank 0 of (16, 16) {arch} prefill S={TP16_SEQ} "
+             f"({pre['depth']}): launches {pre['launches']} (want "
+             f"{pre['expect']}), local logits {pre['logits_local']} (want "
+             f"{want_shape}), dot FLOPs {pre['dot_flops']} vs the dry run's "
+             f"{want_flops}, peak {pre['peak'] / 1e9:.3f} GB vs predicted "
+             f"{want_peak / 1e9:.3f} GB ({100 * rel:+.1f} %, tol "
+             f"{100 * PEAK_TOL:.0f} %), whole {pre['whole']} (dry run "
+             f"{predicted['tp_whole']}, want {whole})")
+    ref = f", reference {pre['reference_s']:.4f} s (counted)" \
+        if "reference_s" in pre else " (counted)"
+    log(f"[tp] b) rank 0 of (16, 16), {arch} full width, {pre['depth']}, "
+        f"make_mesh_prefill_step bf16 B=32 S={TP16_SEQ} global (2 rows a "
+        f"rank; fake group: no value compared): attention_impl="
+        f"pallas launches {pre['launches']} (counts 0 just before; want "
+        f"{pre['expect']}), the rank's last-token logits "
+        f"{pre['logits_local']}; dot FLOPs {pre['dot_flops']:.6e} "
+        f"(FlopCounterMode, equal to the cut cell's dry run); "
+        f"max_memory_allocated {pre['peak'] / 1e9:.3f} GB, the dry run's "
+        f"{want_peak / 1e9:.3f} GB ({100 * rel:+.2f} %, tol "
+        f"{100 * PEAK_TOL:.0f} %); whole over \"model\": "
+        f"{pre['whole'] or 'none'}; arguments "
+        f"{pre['argument_bytes'] / 1e9:.3f} GB; pallas "
+        f"{pre['pallas_s']:.4f} s{ref} | {smi}")
 
 
 # -- phase 24: the examples' counterparts -------------------------------------
@@ -3673,12 +3876,13 @@ def main() -> int:
     log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
 
     mlstm = check_mlstm(dev)
-    cfg = get_config("xlstm-350m")
+    cfg = replace(get_config("xlstm-350m"), num_layers=XLSTM_LAYERS)
     t0 = time.perf_counter()
     params = init_params(cfg, 2021, device=dev)
     torch.cuda.synchronize()
     log(f"[model] {cfg.name}: {param_count(params) / 1e6:.2f} M f32 "
-        f"parameters ({cfg.num_layers} layers: {cfg.n_super} super-blocks "
+        f"parameters ({cfg.num_layers} of 24 layers: {cfg.n_super} "
+        f"super-block(s) "
         f"of 7 mLSTM + 1 sLSTM; d_model {cfg.d_model}, {cfg.num_heads} "
         f"heads) initialised on the card in {time.perf_counter() - t0:.2f} s")
     xlstm = xlstm_forward_phase(params, cfg, dev)
@@ -3700,7 +3904,7 @@ def main() -> int:
     dryrun_phase(smi)
     log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
     tp = tp_phase(dev, smi)
-    tp16 = tp["rank0"]["prefill"]
+    tp16 = {**tp["rank0"]["prefill"], **tp["rank0"]["split_prefill"]}
     log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
     t0 = time.perf_counter()
     examples = examples_phase(dev, smi)

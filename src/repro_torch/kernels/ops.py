@@ -425,25 +425,27 @@ def _launch_flash(q, k, v, o, strides, B, H, Hkv, Sq, Skv, D, causal,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, q_offset: int = 0) -> torch.Tensor:
     """Model layout: q (B,Sq,H,D), k/v (B,Skv,Hkv,D) -> (B,Sq,H,D), with
-    scale D**-0.5 and every key valid (the model's ``flash_fn``).  The
-    kernel reads the model layout through strides: no transpose, no
+    scale D**-0.5 and every key valid (the model's ``flash_fn``); causal
+    masking is q_offset + i >= j (a mesh rank's chunk of query rows).
+    The kernel reads the model layout through strides: no transpose, no
     padding."""
     op = "flash_attention"
-    _check_attention(op, q, k, v, 4, None, 0)
+    _check_attention(op, q, k, v, 4, None, q_offset)
     B, Sq, H, D = q.shape
     Bk, Skv, Hkv, _ = k.shape
     if Bk != B or H % Hkv:
         raise ValueError(f"{op}: q {tuple(q.shape)} vs k {tuple(k.shape)}: "
                          "batch must match and H be a multiple of Hkv")
     if not _on_card(q, op):
-        return ref.flash_attention_model_ref(q, k, v, causal=causal)
+        return ref.flash_attention_model_ref(q, k, v, causal=causal,
+                                             q_offset=q_offset)
     q, k, v = _rows(q), _rows(k), _rows(v)
     o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     strides = [t.stride(a) for t in (q, k, v, o) for a in (0, 1, 2)]
     _launch_flash(q, k, v, o, strides, B, H, Hkv, Sq, Skv, D, causal,
-                  Skv, 0, D ** -0.5)
+                  Skv, int(q_offset), D ** -0.5)
     return o
 
 

@@ -72,16 +72,18 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_model_ref(q: torch.Tensor, k: torch.Tensor,
-                              v: torch.Tensor, *, causal: bool = True
-                              ) -> torch.Tensor:
+                              v: torch.Tensor, *, causal: bool = True,
+                              q_offset: int = 0) -> torch.Tensor:
     """The plain version in the model layout: q (B,Sq,H,D), k/v
-    (B,Skv,Hkv,D) -> (B,Sq,H,D), scale D**-0.5, every key valid."""
+    (B,Skv,Hkv,D) -> (B,Sq,H,D), scale D**-0.5, every key valid, causal
+    masking q_offset + i >= j."""
     B, Sq, H, D = q.shape
     Hkv = k.shape[2]
     qk = q.transpose(1, 2).reshape(B * H, Sq, D)
     kk = k.transpose(1, 2).reshape(B * Hkv, -1, D)
     vv = v.transpose(1, 2).reshape(B * Hkv, -1, D)
-    o = flash_attention_ref(qk, kk, vv, causal=causal, scale=D ** -0.5)
+    o = flash_attention_ref(qk, kk, vv, causal=causal, scale=D ** -0.5,
+                            q_offset=q_offset)
     return o.reshape(B, H, Sq, D).transpose(1, 2)
 
 

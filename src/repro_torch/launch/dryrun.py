@@ -31,9 +31,11 @@ scalar included), ``output_bytes`` (the rank's pieces of the outputs),
 ``temp_bytes`` (the peak of live bytes over the step less the
 arguments; outputs alive at the end included) and ``peak_bytes``
 (argument + temp).  ``tp_whole``: the sub-block kinds the step computes
-whole on every "model" rank, where the slice has no tensor-parallel
-form yet ("mamba", "mlstm", "slstm", "mla"; "attn" / "cross" / "ffn"
-where "model" divides no head or ``d_ff``).  ``--moe-quant`` /
+whole on every "model" rank, where it has no tensor-parallel form
+("slstm_recurrence": the sLSTM's recurrence where "model" does not
+divide its heads; "mamba", "mlstm", "slstm", "mla", "attn", "cross",
+"ffn" where "model" splits none of their weights or its blocks' chunks
+do not divide the rows).  ``--moe-quant`` /
 ``--moe-local-cf`` configure the expert-parallel dispatch the mesh
 steps run (``models/moe_sharded.py``), as the JAX CLI's do.
 """
@@ -199,7 +201,9 @@ def run_cell(arch, shape_name, *, multi_pod=False, run_overrides=None,
     """Dry-runs one production cell on (16, 16), or (2, 16, 16) with
     ``multi_pod``; returns its result dict (JSON-serializable).
     ``layers``: the depth cut to that many layers (the cell's arch is
-    then recorded as ``ARCH@<layers>L``)."""
+    then recorded as ``ARCH@<layers>L``); a ``grad_accum`` or
+    ``seq_len`` in ``run_overrides`` replaces the shape's (recorded as
+    ``SHAPE@ga<n>`` / ``SHAPE@S<n>``)."""
     cfg = get_config(arch)
     if layers:
         cfg = dataclasses.replace(cfg, num_layers=layers)
@@ -209,16 +213,19 @@ def run_cell(arch, shape_name, *, multi_pod=False, run_overrides=None,
             cfg, moe=dataclasses.replace(cfg.moe, **moe_overrides))
     shape = get_shape(shape_name)
     run_overrides = dict(run_overrides or {})
-    if "grad_accum" in run_overrides:
-        shape = dataclasses.replace(
-            shape, grad_accum=run_overrides.pop("grad_accum"))
+    name = shape_name
+    for key, tag in (("grad_accum", "ga"), ("seq_len", "S")):
+        if key in run_overrides:
+            n = run_overrides.pop(key)
+            shape = dataclasses.replace(shape, **{key: n})
+            name += f"@{tag}{n}"
     run = RunConfig(model=cfg, shape=shape)
     if run_overrides:
         run = run.replace(**run_overrides)
     r = dry_run(cfg, shape, run, (2, 16, 16) if multi_pod else (16, 16),
                 device)
     r["arch"] = f"{arch}@{layers}L" if layers else arch
-    r["shape"] = shape_name
+    r["shape"] = name
     return r
 
 
@@ -235,6 +242,10 @@ def main(argv=None):
     ap.add_argument("--moe-quant", default=None, choices=("none", "int8"))
     ap.add_argument("--moe-local-cf", type=float, default=None)
     ap.add_argument("--grad-accum", type=int, default=None)
+    ap.add_argument("--seq-len", type=int, default=None,
+                    help="the cell's sequence length in place of the "
+                         "shape's (the JSON file and the cell's shape say "
+                         "so)")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to this many layers (a whole "
                          "number of super-blocks; the JSON file and the "
@@ -256,6 +267,8 @@ def main(argv=None):
         overrides["attention_q_chunk"] = args.q_chunk
     if args.grad_accum:
         overrides["grad_accum"] = args.grad_accum
+    if args.seq_len:
+        overrides["seq_len"] = args.seq_len
 
     if args.all:
         todo = list(cells())
@@ -310,6 +323,8 @@ def main(argv=None):
         out.mkdir(parents=True, exist_ok=True)
         suffix = (args.arch or "all") + "_" + (args.shape or "all")
         cut = f"_{args.layers}L" if args.layers else ""
+        cut += f"_ga{args.grad_accum}" if args.grad_accum else ""
+        cut += f"_S{args.seq_len}" if args.seq_len else ""
         path = out / f"dryrun_{suffix}_{args.multi_pod}{cut}.json"
         path.write_text(json.dumps(results, indent=1))
         print(f"wrote {path}")

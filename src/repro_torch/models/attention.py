@@ -162,6 +162,56 @@ def attention_forward(p, x, *, positions, causal=True, rope_theta=1e4,
     return torch.einsum("bshe,hed->bsd", out, p["wo"].to(dt)), (k, v)
 
 
+def attention_rows(p, x, grp, *, positions, causal=True, rope_theta=1e4,
+                   use_rope=True, qk_norm=False, q_chunk=1024, x_cross=None,
+                   flash_fn=None):
+    """``attention_forward`` on one rank's share of a
+    ``tp.HeadGroups`` block: ``p`` holds the block's group of heads, x
+    every row; the rank projects q on its query rows (``grp.rows``: two
+    chunks where causal, so each rank attends to as many keys) and k / v
+    on its share of the kv rows (the encoder's frames for
+    cross-attention), joined over the block (``grp.gather_rows``), and
+    attends each chunk to the keys it sees (the flash kernel with the
+    chunk's ``q_offset`` where ``flash_fn`` is given).  Returns (the
+    output on the rank's rows, zero on the others: a sum over "model"
+    makes it every group's on every row; (k, v) of every kv row for the
+    group's kv heads)."""
+    B, S, _ = x.shape
+    self_causal = causal and x_cross is None
+    spans = grp.rows(S, self_causal)
+    rows = torch.cat([torch.arange(a, b) for a, b in spans]).to(x.device)
+    x_r = x[:, rows]
+    if x_cross is None:
+        kv_src, kv_len = x_r, S
+        kv_pos = positions
+        kv_pos_r = positions[rows]
+    else:
+        kv_len = x_cross.shape[1]
+        (a, b), = grp.rows(kv_len, False)
+        kv_src = x_cross[:, a:b]
+        kv_pos = torch.arange(kv_len, device=x.device)
+        kv_pos_r = kv_pos[a:b]
+    q, k, v = _project_qkv(p, x_r, kv_src, rope_theta, positions[rows],
+                           kv_pos_r, qk_norm, use_rope and x_cross is None)
+    k, v = (grp.gather_rows(t, kv_len, self_causal) for t in (k, v))
+    outs, at = [], 0
+    for a, b in spans:
+        qc = q[:, at:at + b - a]
+        at += b - a
+        end = b if self_causal else kv_len
+        if flash_fn is not None and x_cross is None:
+            outs.append(flash_fn(qc, k[:, :end], v[:, :end], causal=causal,
+                                 q_offset=a if causal else 0))
+        else:
+            outs.append(chunked_attention(
+                qc, k[:, :end], v[:, :end], q_positions=positions[a:b],
+                kv_positions=kv_pos[:end], causal=self_causal,
+                q_chunk=q_chunk))
+    y = torch.einsum("bshe,hed->bsd", torch.cat(outs, dim=1),
+                     p["wo"].to(x.dtype))
+    return y.new_zeros((B, S, y.shape[-1])).index_copy(1, rows, y), (k, v)
+
+
 def init_kv_cache(batch, max_len, num_kv_heads, head_dim, dtype, device):
     shape = (batch, max_len, num_kv_heads, head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -170,7 +220,7 @@ def init_kv_cache(batch, max_len, num_kv_heads, head_dim, dtype, device):
 
 def attention_decode(p, x, cache, *, pos, rope_theta=1e4, use_rope=True,
                      qk_norm=False, cross=False, seq=None,
-                     heads_split=False):
+                     heads_split=False, head_groups=None):
     """One-token decode.  x: (B,1,D); cache {"k","v"}: (B,Smax,Hkv,D);
     pos: int, the index of the new token.  Returns (out, cache).
 
@@ -189,11 +239,19 @@ def attention_decode(p, x, cache, *, pos, rope_theta=1e4, use_rope=True,
     heads, or every kv head), so q (and the new k / v) are gathered over
     "model" before attention and the output keeps the rank's heads for
     its row-parallel ``wo`` (reduce-scattered to them where "model" is
-    one of the sequence's groups)."""
+    one of the sequence's groups); ``head_groups`` (a ``tp.HeadGroups``):
+    ``p`` holds the rank's group of q heads (``wk`` / ``wv`` whole); the
+    block's ranks split the rows (``batch_rows``) for q and for ``wo``,
+    q gathered over "model" one copy a group (where R does not divide
+    the rows, each rank takes every row and the block's first adds its
+    group's output)."""
     dt = x.dtype
     # filled on the device: no host-to-device copy to wait on
     pos_t = torch.full((1,), pos, dtype=torch.int64, device=x.device)
-    q = torch.einsum("bsd,dhe->bshe", x, p["wq"].to(dt))
+    part = None if head_groups is None else \
+        head_groups.batch_rows(x.shape[0])
+    q = torch.einsum("bsd,dhe->bshe", x if part is None else x[part],
+                     p["wq"].to(dt))
     if qk_norm:
         q = rms_head_norm(q, p["q_norm"])
     if use_rope and not cross:
@@ -201,6 +259,8 @@ def attention_decode(p, x, cache, *, pos, rope_theta=1e4, use_rope=True,
     if heads_split:
         h_loc = q.shape[2]
         q = tp.gather_model(q, 2)
+    elif head_groups is not None:
+        q = head_groups.gather_heads(q, rows=part is not None)
 
     smax = cache["k"].shape[1]
     groups, offset, length = seq or ((), 0, smax)
@@ -240,4 +300,10 @@ def attention_decode(p, x, cache, *, pos, rope_theta=1e4, use_rope=True,
     if heads_split:
         c = tp.model_rank()
         out = out[:, :, c * h_loc:(c + 1) * h_loc]
+    elif head_groups is not None:
+        out = out[:, :, head_groups.heads]
+        if part is not None:
+            out = out[part]
+        y = torch.einsum("bshe,hed->bsd", out, p["wo"].to(dt))
+        return head_groups.add_rows(y, x.shape[0], part), cache
     return torch.einsum("bshe,hed->bsd", out, p["wo"].to(dt)), cache

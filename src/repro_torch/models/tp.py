@@ -15,7 +15,8 @@ it computes with only when it runs that super-block:
     every "model" rank computes whole (``note_whole`` records it);
   * ``shared(leaf)``: ``whole`` through Megatron's f, for a leaf the
     rule replicates over "model" that a tensor-parallel region reads
-    (qk-norm scales, the kv projections a rank's q heads select).
+    (qk-norm scales, the kv projections a rank's q heads select, the
+    heads of a ``HeadGroups`` group where "model" does not divide them).
 
 A gather's backward reduce-scatters the gradient, summed, over the dims
 whose ranks hold other rows ("data"), and takes the rank's slice over
@@ -30,6 +31,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import math
 import threading
 import weakref
 
@@ -77,6 +79,7 @@ class MeshView:
         self.groups = tuple(mesh.get_group(a) if n > 1 else None
                             for a, n in zip(self.names, self.sizes))
         self.shape = dict(zip(self.names, self.sizes))
+        self.blocks = {}              # (size) -> ``block_group``'s group
 
     def size(self, name) -> int:
         return self.shape.get(name, 1)
@@ -290,6 +293,19 @@ def model_slice(x, dim, on: bool = True):
     return x if m == 1 else x.chunk(m, dim=dim)[model_rank()]
 
 
+def part_of(leaf, dim):
+    """The rank's part along ``dim`` of a leaf that a tensor-parallel
+    region reads in "model" parts that need not be even
+    (``torch.tensor_split``): its stored piece where the rule splits it
+    there (evenly), else all of it through ``shared`` cut to the rank's
+    part.  A plain tensor as it is."""
+    if not is_stored(leaf):
+        return leaf
+    if split_on(leaf, dim):
+        return local(leaf)
+    return shared(leaf).tensor_split(model_size(), dim=dim)[model_rank()]
+
+
 class Columns:
     """Products ``x @ w`` of one input ``x``, each whole (every output
     column) on every "model" rank.  ``region``: the products' consumers
@@ -378,6 +394,176 @@ def halves(xz, on: bool = True):
         return xz.chunk(2, dim=-1)
     sends, recvs = _halves_plan(xz.shape[-1], model_size(), model_rank())
     return _Halves.apply(xz, group, sends, recvs).chunk(2, dim=-1)
+
+
+# --------------------------------------------------------------------------
+# heads that "model" does not divide
+# --------------------------------------------------------------------------
+
+def block_group(size):
+    """The process group of the ``size`` consecutive "model" ranks that
+    hold this rank (``size`` divides "model"), made on first use by its
+    members alone and kept with the mesh's view."""
+    v = view()
+    if size == 1:
+        return None
+    if size == v.size(MODEL):
+        return v.group(MODEL)
+    if size not in v.blocks:
+        ranks = dist.get_process_group_ranks(v.group(MODEL))
+        first = v.coordinate(MODEL) // size * size
+        v.blocks[size] = dist.new_group(ranks[first:first + size],
+                                        use_local_synchronization=True)
+    return v.blocks[size]
+
+
+class _Psum(torch.autograd.Function):
+    """Sum over ``group`` forward and backward: a partial sum whose sum
+    each rank then uses in its own share of the compute."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ScatterSum(torch.autograd.Function):
+    """Reduce-scatter over ``group`` along ``dim`` (each rank keeps its
+    slice of the sum); backward all-gathers the slices' cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, dim):
+        ctx.args = (group, n, dim)
+        return reduce_scatter(x, group, n, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, n, dim = ctx.args
+        return all_gather(g, group, n, dim), None, None, None
+
+
+class HeadGroups:
+    """How the "model" ranks share ``num_heads`` heads that they do not
+    divide: ``g = gcd(H, m)`` groups of ``hg = H / g`` consecutive heads,
+    group ``index`` on the ``R = m / g`` consecutive ranks of its block
+    (``block_group``), where this rank is number ``j``.  The ranks of a
+    block split their group's work among them: attention and MLA its
+    query rows (``rows``) with k and v joined over the block, the mLSTM
+    (one head a block) its head dim.  Every collective of the block runs
+    on ``group``; on plain tensors nothing here is used."""
+
+    def __init__(self, num_heads):
+        m = model_size()
+        self.g = math.gcd(num_heads, m)
+        self.R = m // self.g
+        self.hg = num_heads // self.g
+        self.index, self.j = divmod(model_rank(), self.R)
+        self.heads = slice(self.index * self.hg, (self.index + 1) * self.hg)
+        self.group = block_group(self.R)
+
+    def first(self) -> bool:
+        """Whether this rank is its block's first."""
+        return self.j == 0
+
+    def psum(self, x):
+        """``x`` summed over the block, each rank's cotangent its share."""
+        return _Psum.apply(x, self.group) if self.group is not None else x
+
+    def scatter_sum(self, x, dim):
+        """The rank's slice along ``dim`` of ``x`` summed over the block."""
+        if self.group is None:
+            return x
+        return _ScatterSum.apply(x, self.group, self.R, dim % x.dim())
+
+    def gather(self, x, dim):
+        """The block's pieces of ``x`` joined along ``dim`` in rank order;
+        the backward reduce-scatters the summed cotangent."""
+        if self.group is None:
+            return x
+        return _Gather.apply(x, ((self.group, self.R, self.j, dim % x.dim(),
+                                  True),))
+
+    def rows(self, length, causal):
+        """The rank's query rows of a sequence of ``length`` as (start,
+        end) spans: of 2R equal chunks, chunk j and chunk 2R-1-j where
+        the attention is causal (every rank of the block then attends to
+        as many keys), else the j-th of R chunks.  None when the chunks
+        do not divide ``length``."""
+        n = 2 * self.R if causal else self.R
+        if length % n:
+            return None
+        c = length // n
+        spans = [(self.j * c, (self.j + 1) * c)]
+        if causal:
+            spans.append(((n - 1 - self.j) * c, (n - self.j) * c))
+        return spans
+
+    def gather_rows(self, x, length, causal, dim=1):
+        """Every row of a sequence (along ``dim``) from each block rank's
+        ``rows`` of it, in the sequence's order."""
+        x = self.gather(x, dim)
+        if not causal or self.R == 1:
+            return x
+        c = length // (2 * self.R)
+        order = []
+        for r in range(self.R):
+            order += [r, 2 * self.R - 1 - r]     # rank r's two chunks
+        at = {chunk: i for i, chunk in enumerate(order)}
+        idx = torch.cat([torch.arange(at[k] * c, (at[k] + 1) * c)
+                         for k in range(2 * self.R)]).to(x.device)
+        return x.index_select(dim, idx)
+
+    def batch_rows(self, n):
+        """The rank's share of a decode step's ``n`` rows (the block's
+        ranks split them), None where R does not divide ``n``."""
+        if n % self.R:
+            return None
+        r = n // self.R
+        return slice(self.j * r, (self.j + 1) * r)
+
+    def gather_heads(self, x, dim=2, rows=False):
+        """Every head of ``x`` (this rank's group's ``hg`` heads along
+        ``dim``) gathered over "model", one copy of each group's; with
+        ``rows``, ``x`` holds the rank's ``batch_rows`` (dim 0), and
+        every row comes back too (forward only: decode)."""
+        if rows:
+            x = all_gather(x, model_group(), model_size(), 0)
+            x = x.reshape((self.g, self.R, x.shape[0] // model_size())
+                          + tuple(x.shape[1:])).movedim(0, dim + 1)
+            shape = x.shape                 # (R, b, ..., g, hg, ...)
+            return x.reshape((shape[0] * shape[1],) + shape[2:dim + 1]
+                             + (self.g * self.hg,) + shape[dim + 3:])
+        x = all_gather(x, model_group(), model_size(), dim)
+        shape = x.shape
+        x = x.reshape(shape[:dim] + (self.g, self.R, self.hg)
+                      + shape[dim + 1:])
+        return x.select(dim + 1, 0).reshape(
+            shape[:dim] + (self.g * self.hg,) + shape[dim + 1:])
+
+    def add_rows(self, y, n, part):
+        """A decode step's output of the rank's share of the rows (``part``
+        of ``n``; None: every row, which only the block's first rank
+        adds) as its term of the sum over "model"."""
+        if part is None:
+            return y if self.first() else torch.zeros_like(y)
+        out = y.new_zeros((n,) + tuple(y.shape[1:]))
+        out[part] = y
+        return out
+
+
+def undivided(num_heads) -> bool:
+    """Whether the current mesh's "model" has more than one rank and does
+    not divide ``num_heads``."""
+    m = model_size()
+    return m > 1 and num_heads % m != 0
 
 
 # --------------------------------------------------------------------------
@@ -509,8 +695,8 @@ def recording():
 
 def note_whole(kind: str) -> None:
     """Records that a sub-block of ``kind`` ("mamba", "mlstm", "slstm",
-    "mla", "attn", "cross", "ffn", "moe") ran whole over "model"; only
-    where "model" has more than one rank."""
+    "slstm_recurrence", "mla", "attn", "cross", "ffn", "moe") ran whole
+    over "model"; only where "model" has more than one rank."""
     rec = getattr(_state, "whole", None)
     if rec is not None and model_size() > 1:
         rec.add(kind)
@@ -566,6 +752,34 @@ def attention_weights(p, num_heads, num_kv_heads, *, select=True):
         if k in p:
             out[k] = shared(p[k])
     return out, every
+
+
+def attention_groups(p, num_heads, num_kv_heads, length, causal,
+                     kv_length=None):
+    """(the weights of this rank's group of heads, the kv heads of every
+    "model" rank, the ``HeadGroups``) where "model" does not divide the
+    heads (the rule stores them whole) and its groups divide the kv
+    heads, and their blocks' chunks divide the ``length`` query rows
+    (and the ``kv_length`` keys of cross-attention); else None.  Every
+    weight is read through ``shared`` (the gradient summed over
+    "model": each group adds its heads' share)."""
+    if not is_stored(p["wq"]) or not undivided(num_heads):
+        return None
+    grp = HeadGroups(num_heads)
+    if num_kv_heads % grp.g or grp.rows(length, causal) is None or (
+            kv_length is not None and grp.rows(kv_length, False) is None):
+        return None
+    hk = num_kv_heads // grp.g
+    out = {"wq": shared(p["wq"])[:, grp.heads],
+           "wo": shared(p["wo"])[grp.heads]}
+    for k in ("wk", "wv"):
+        out[k] = shared(p[k])[:, grp.index * hk:(grp.index + 1) * hk]
+    for k in ("q_norm", "k_norm"):
+        if k in p:
+            out[k] = shared(p[k])
+    every = [list(range(r // grp.R * hk, (r // grp.R + 1) * hk))
+             for r in range(model_size())]
+    return out, every, grp
 
 
 def heads_to_seq(x, every, num_kv_heads):

@@ -156,7 +156,7 @@ def apply_subblock_decode(p, x, state, cfg, mixer, ffn, *, pos):
     else:
         local = {k: tp.own(v) for k, v in state.items()}
         if mixer == "attn":
-            _mla_heads(p["mixer"])
+            _mla_plan(p["mixer"])
             y, new_state = mla_mod.mla_decode(
                 p["mixer"], h, local, pos=pos, mla=cfg.mla,
                 rope_theta=cfg.rope_theta, seq=tp.seq_split(state["c_kv"]))
@@ -187,36 +187,49 @@ def apply_subblock_decode(p, x, state, cfg, mixer, ffn, *, pos):
 def _attention_tp(p, h, cfg, kind, *, collect_cache, x_cross=None,
                   **kwargs):
     """``attention_forward`` on this rank's heads between f and g where
-    "model" splits them (whole otherwise); the cache seeds leave with
-    every kv head and the rank's slice of the sequence
-    (``tp.heads_to_seq``)."""
+    "model" splits them; where it does not, on its share of a group of
+    heads (``tp.attention_groups``, ``attention.attention_rows``); whole
+    otherwise.  The cache seeds leave with every kv head and the rank's
+    slice of the sequence (``tp.heads_to_seq``)."""
     w, every = tp.attention_weights(p, cfg.num_heads, cfg.num_kv_heads)
     split = every is not None
+    grp = None
     if not split:
-        tp.note_whole(kind)
+        groups = tp.attention_groups(
+            p, cfg.num_heads, cfg.num_kv_heads, h.shape[1],
+            kwargs["causal"] and x_cross is None,
+            None if x_cross is None else x_cross.shape[1])
+        if groups is None:
+            tp.note_whole(kind)
+        else:
+            w, every, grp = groups
+            split = True
     if x_cross is not None:
         x_cross = tp.into_model(x_cross, split)
-    y, (k, v) = attn.attention_forward(w, tp.into_model(h, split),
-                                       x_cross=x_cross, **kwargs)
+    if grp is not None:
+        y, (k, v) = attn.attention_rows(w, tp.into_model(h), grp,
+                                        x_cross=x_cross, **kwargs)
+    else:
+        y, (k, v) = attn.attention_forward(w, tp.into_model(h, split),
+                                           x_cross=x_cross, **kwargs)
     if split and collect_cache:
         k = tp.heads_to_seq(k, every, cfg.num_kv_heads)
         v = tp.heads_to_seq(v, every, cfg.num_kv_heads)
     return tp.out_of_model(y, split), {"k": k, "v": v}
 
 
-def _mla_heads(p) -> bool:
-    """Whether the rule splits MLA's heads (``mla.heads_split``); MLA
-    recorded whole where it does not."""
-    heads = mla_mod.heads_split(p)
-    if not heads:
+def _mla_plan(p, length=None):
+    """``mla.plan``; MLA recorded whole where "model" computes all of it
+    on every rank."""
+    mode, _ = mla_mod.plan(p, length)
+    if mode is None:
         tp.note_whole("mla")
-    return heads
 
 
 def _mla_tp(p, h, cfg, *, positions, q_chunk):
     """``mla_forward`` as the rules split it (``models/mla.py``); the
     latents that seed the cache are whole on every "model" rank."""
-    _mla_heads(p)
+    _mla_plan(p, h.shape[1])
     y, (c_kv, k_rope) = mla_mod.mla_forward(
         p, h, positions=positions, mla=cfg.mla, rope_theta=cfg.rope_theta,
         q_chunk=q_chunk)
@@ -248,11 +261,14 @@ def _mamba_tp(p, h, cfg, *, scan_fn, collect_cache):
 
 def _xlstm_split(p, cfg, mixer):
     """The mLSTM's or sLSTM's split (``xlstm.mlstm_split`` /
-    ``slstm_split``); the mixer recorded whole where it is not split."""
+    ``slstm_split``); the mixer recorded whole where it is not split, the
+    sLSTM's recurrence ("slstm_recurrence") where only it is whole."""
     split = (xl.mlstm_split if mixer == "mlstm" else xl.slstm_split)(
         p, cfg.num_heads)
     if split is None:
         tp.note_whole(mixer)
+    elif split == "rec":
+        tp.note_whole("slstm_recurrence")
     return split
 
 
@@ -266,9 +282,8 @@ def _xlstm_tp(p, h, cfg, mixer, *, chunk_fn, collect_cache):
     else:
         y, seed = xl.slstm_forward(p, h, cfg.num_heads, cfg.xlstm,
                                    split=split)
-    if split == "heads" and collect_cache:
-        seed = {k: v if k == "conv" or v is None else tp.gather_model(v, 1)
-                for k, v in seed.items()}
+    if collect_cache:
+        seed = xl.gather_state(seed, split, cfg.num_heads)
     return y, seed
 
 
@@ -286,16 +301,26 @@ def _ffn_tp(p, h, cfg):
 def _attention_decode_tp(p, h, cache, cfg, kind, **kwargs):
     """``attention_decode`` on this rank's heads where "model" splits them
     (q and the new k / v gathered, the output's heads kept for ``wo``,
-    then g), against the rank's slice of the cache's sequence."""
+    then g), on its group of heads where "model" does not divide them
+    (``tp.HeadGroups``: the block's ranks split the batch rows), against
+    the rank's slice of the cache's sequence."""
     w, every = tp.attention_weights(p, cfg.num_heads, cfg.num_kv_heads,
                                     select=False)
     split = every is not None
-    if not split:
+    grp = None
+    if not split and tp.is_stored(p["wq"]) and \
+            tp.undivided(cfg.num_heads):
+        grp = tp.HeadGroups(cfg.num_heads)
+        w = {k: tp.whole(v) for k, v in p.items()}
+        w["wq"] = w["wq"][:, grp.heads]
+        w["wo"] = w["wo"][grp.heads]
+    elif not split:
         tp.note_whole(kind)
     local = {k: tp.own(v) for k, v in cache.items()}
     y, _ = attn.attention_decode(w, h, local, seq=tp.seq_split(cache["k"]),
-                                 heads_split=split, **kwargs)
-    return tp.out_of_model(y, split), local
+                                 heads_split=split, head_groups=grp,
+                                 **kwargs)
+    return tp.out_of_model(y, split or grp is not None), local
 
 
 def init_subblock_state(cfg, idx_def, batch, max_len, dtype, device,

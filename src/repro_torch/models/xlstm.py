@@ -18,16 +18,24 @@ the chunk loop keeps it in f32 into the head-wise norm, so in bf16 the
 two paths differ by one more rounding of h.
 
 Every function here takes the weights as plain tensors or as a mesh
-step's ``tp.Stored`` leaves, split over "model" as the JAX package's
-compiled step splits them (``mlstm_split`` / ``slstm_split``): with
-"heads", where "model" divides the heads, each rank runs its heads'
-cells between f and g (the mLSTM's up-projection column-parallel and
-gathered, q / k / v / the gates and the sLSTM's gate projections on the
-rank's heads, the mLSTM's down-projection row-parallel; the sLSTM's
-hidden state gathered, its GLU's up-projections row-parallel inside
-``tp.row_parallel_glu`` and its down-projection column-parallel); with
-None (plain tensors, nothing split, or heads that "model" does not
-divide) every weight is gathered and everything is whole.
+step's ``tp.Stored`` leaves, split over "model" as the rules store them
+(``mlstm_split`` / ``slstm_split``): with "heads", where "model" divides
+the heads, each rank runs its heads' cells between f and g (the mLSTM's
+up-projection column-parallel and gathered, q / k / v / the gates and
+the sLSTM's gate projections on the rank's heads, the mLSTM's
+down-projection row-parallel; the sLSTM's hidden state gathered, its
+GLU's up-projections row-parallel inside ``tp.row_parallel_glu`` and its
+down-projection column-parallel).  Where "model" does not divide the
+heads but splits the projections' columns, the mLSTM takes "dh": each
+rank holds a slice of one head's dh (``tp.HeadGroups``: the R ranks of a
+head's block), its cell sums the partial q.k scores and n.q over the
+block, keeps C and n in blocks of the rank's k rows, joins v over the
+block for the state update and scatters the inter-chunk term's sum to
+the rank's v columns; the sLSTM takes "rec": its input-side gate
+projections column-parallel and gathered, its recurrence whole on every
+rank (a split would cost a collective every time step), its GLU
+column- then row-parallel.  With None (plain tensors, nothing split)
+every weight is gathered and everything is whole.
 """
 from __future__ import annotations
 
@@ -39,12 +47,12 @@ from repro_torch.models.layers import dense_init
 from repro_torch.models.mamba import _causal_conv
 
 
-def _split(w, num_heads):
-    """"heads" or None for a mixer whose first head-major projection is
-    ``w`` (see the module docstring)."""
-    if tp.split_on(w, 1) and num_heads % tp.model_size() == 0:
-        return "heads"
-    return None
+def _split(w, num_heads, undivided):
+    """"heads", ``undivided`` or None for a mixer whose first head-major
+    projection is ``w`` (see the module docstring)."""
+    if not tp.split_on(w, 1):
+        return None
+    return "heads" if num_heads % tp.model_size() == 0 else undivided
 
 
 def _heads_of(leaf, region):
@@ -91,21 +99,31 @@ def init_mlstm(gen, d_model, num_heads, xcfg, device):
     }
 
 
-def _headwise_norm(h, scale, num_heads, eps=1e-6):
+def _headwise_norm(h, scale, num_heads, eps=1e-6, grp=None, dh=None):
     """GroupNorm with one group per head over (B,S,H,dh); population
-    variance, as ``jnp.var``."""
+    variance, as ``jnp.var``.  ``grp`` (the "dh" split): h holds the
+    rank's slice of a head of ``dh``, whose sums are taken over the
+    block."""
     hf = h.to(torch.float32)
-    mu = hf.mean(-1, keepdim=True)
-    var = hf.var(-1, keepdim=True, correction=0)
+    if grp is None:
+        mu = hf.mean(-1, keepdim=True)
+        var = hf.var(-1, keepdim=True, correction=0)
+    else:
+        mu = grp.psum(hf.sum(-1, keepdim=True)) / dh
+        var = grp.psum((hf - mu).square().sum(-1, keepdim=True)) / dh
     out = (hf - mu) * torch.rsqrt(var + eps)
-    _, _, H, dh = h.shape
-    return (out * scale.reshape(H, dh)).to(h.dtype)
+    _, _, H, dhl = h.shape
+    return (out * scale.reshape(H, dhl)).to(h.dtype)
 
 
-def _mlstm_chunk(carry, qkv_if, dh):
+def _mlstm_chunk(carry, qkv_if, dh, grp=None, own=None):
     """One chunk of the stabilized chunkwise-parallel mLSTM.
     carry: C (B,H,dk,dv), n (B,H,dk), m (B,H).
-    qkv_if: q,k,v (B,H,c,dh); logi, logf (B,H,c)."""
+    qkv_if: q,k,v (B,H,c,dh); logi, logf (B,H,c).  ``grp`` (the "dh"
+    split): q and k hold the rank's slice of the head's dh, v all of it;
+    C and n the rank's block of k rows; h comes back on the rank's v
+    columns.  ``own``: the rows the end-of-chunk C and n are needed for
+    (a function of a batch-first tensor; all of them by default)."""
     C0, n0, m0 = carry
     q, k, v, logi, logf = qkv_if
     f32 = torch.float32
@@ -125,19 +143,30 @@ def _mlstm_chunk(carry, qkv_if, dh):
     Dmask = torch.where(tril, Dmask, torch.zeros((), dtype=f32,
                                                  device=q.device))
 
-    S_intra = torch.einsum("bhtd,bhjd->bhtj", qf, kf) * Dmask
-    num = (torch.einsum("bhtj,bhjd->bhtd", S_intra, vf)
-           + w_state[..., None] * torch.einsum("bhtd,bhde->bhte", qf, C0))
+    qk = torch.einsum("bhtd,bhjd->bhtj", qf, kf)
+    inter = torch.einsum("bhtd,bhde->bhte", qf, C0)
+    v_own = vf
+    if grp is not None:
+        qk = grp.psum(qk)
+        inter = grp.scatter_sum(inter, -1)
+        v_own = vf.chunk(grp.R, dim=-1)[grp.j]
+    S_intra = qk * Dmask
+    num = (torch.einsum("bhtj,bhjd->bhtd", S_intra, v_own)
+           + w_state[..., None] * inter)
     nvec = (w_state[..., None] * n0[:, :, None, :]
             + torch.einsum("bhtj,bhjd->bhtd", Dmask, kf))
-    den = torch.maximum(torch.einsum("bhtd,bhtd->bht", nvec, qf).abs(),
-                        torch.exp(-m_new))
+    nq = torch.einsum("bhtd,bhtd->bht", nvec, qf)
+    if grp is not None:
+        nq = grp.psum(nq)
+    den = torch.maximum(nq.abs(), torch.exp(-m_new))
     h = num / den[..., None]                             # (B,H,c,dv)
 
     # end-of-chunk state
     Mc = M[..., -1]
     wc = torch.exp(m0 - Mc)                              # (B,H)
     w_j = torch.exp(a - Mc[..., None])                   # (B,H,c)
+    own = own or (lambda t: t)
+    wc, C0, n0, w_j, kf, vf = (own(t) for t in (wc, C0, n0, w_j, kf, vf))
     C1 = wc[..., None, None] * C0 + torch.einsum(
         "bhjd,bhje->bhde", kf * w_j[..., None], vf)
     n1 = wc[..., None] * n0 + torch.einsum("bhj,bhjd->bhd", w_j, kf)
@@ -146,9 +175,15 @@ def _mlstm_chunk(carry, qkv_if, dh):
 
 
 def mlstm_split(p, num_heads):
-    """How a mesh step splits this mLSTM over "model": "heads" or None
-    (the module docstring)."""
-    return _split(p["wq"], num_heads)
+    """How a mesh step splits this mLSTM over "model": "heads", "dh" or
+    None (the module docstring)."""
+    undivided = "dh" if tp.model_size() % num_heads == 0 else None
+    return _split(p["wq"], num_heads, undivided)
+
+
+def _cell_group(split, num_heads):
+    """The head blocks of the "dh" split (None for another)."""
+    return tp.HeadGroups(num_heads) if split == "dh" else None
 
 
 def _qkv_gates(p, x, num_heads, d_inner, dh, conv0=None, split=None):
@@ -158,7 +193,7 @@ def _qkv_gates(p, x, num_heads, d_inner, dh, conv0=None, split=None):
     "heads": H and z are the rank's heads (the conv runs on every
     channel, as the reference's ``w_up`` product is gathered)."""
     dt = x.dtype
-    region = split == "heads"
+    region = split is not None
     up = tp.Columns(x, region)(p["w_up"])
     xi, z = up.chunk(2, dim=-1)
     cw = tp.shared if region else tp.whole
@@ -167,15 +202,18 @@ def _qkv_gates(p, x, num_heads, d_inner, dh, conv0=None, split=None):
     xc = F.silu(xc)
     B, S, _ = x.shape
     if region:
-        m, c = tp.model_size(), tp.model_rank()
-        hl = num_heads // m
+        # the rank's heads, or ("dh") the one head its slice is of
+        if split == "dh":
+            sel = _cell_group(split, num_heads).heads
+        else:
+            n = num_heads // tp.model_size()
+            sel = slice(tp.model_rank() * n, (tp.model_rank() + 1) * n)
+        hl = sel.stop - sel.start
         wq, wk, wv = (tp.local(p[k]).to(dt) for k in ("wq", "wk", "wv"))
         q, k, v = xc @ wq, xc @ wk, xi @ wv
         w_if = tp.shared(p["w_if"])
-        w_if = torch.cat([w_if[:, c * hl:(c + 1) * hl],
-                          w_if[:, num_heads + c * hl:
-                               num_heads + (c + 1) * hl]], dim=1)
-        b_i, b_f = tp.slice_of(p["b_i"], 0), tp.slice_of(p["b_f"], 0)
+        w_if = torch.cat([w_if[:, sel], w_if[:, num_heads:][:, sel]], dim=1)
+        b_i, b_f = (tp.shared(p[k])[sel] for k in ("b_i", "b_f"))
         z = tp.model_slice(z, -1)
     else:
         hl = num_heads
@@ -184,7 +222,7 @@ def _qkv_gates(p, x, num_heads, d_inner, dh, conv0=None, split=None):
         w_if, b_i, b_f = (tp.whole(p[k]) for k in ("w_if", "b_i", "b_f"))
 
     def heads(t):
-        return t.reshape(B, S, hl, dh).transpose(1, 2)
+        return t.reshape(B, S, hl, -1).transpose(1, 2)
     q, k, v = heads(q), heads(k), heads(v)
     gif = (xc @ w_if.to(dt)).to(torch.float32)
     i_raw = gif[..., :hl] + b_i
@@ -194,9 +232,40 @@ def _qkv_gates(p, x, num_heads, d_inner, dh, conv0=None, split=None):
     return q, k, v, logi, logf, z, conv_new
 
 
-def _head_state(state, keys, region):
-    """The rank's heads (dim 1) of a state stored whole over "model"."""
-    return [tp.model_slice(state[k], 1, region) for k in keys]
+def _head_state(state, keys, split, grp=None):
+    """The rank's part of a state stored whole over "model": its heads
+    (dim 1) with "heads"; with "dh" its head, and of C and n its block of
+    k rows; all of it otherwise."""
+    if grp is None:
+        return [tp.model_slice(state[k], 1, split == "heads") for k in keys]
+    out = []
+    for k in keys:
+        t = state[k][:, grp.heads]
+        if t.dim() > 2:
+            t = t.chunk(grp.R, dim=2)[grp.j]
+        out.append(t)
+    return out
+
+
+def gather_state(state, split, num_heads):
+    """The C, n and m of an mLSTM state or the c, n, h, m of an sLSTM
+    state whole over "model", from the rank's part of them ("heads",
+    "dh"); ``state`` itself for another split.  Forward only."""
+    if split not in ("heads", "dh"):
+        return state
+    out = dict(state)
+    for k, t in state.items():
+        if k == "conv" or t is None:
+            continue
+        if split == "heads":
+            out[k] = tp.gather_model(t, 1)
+        elif t.dim() == 2:                          # m: (B, 1) per rank
+            g = tp.gather_model(t, 1)
+            out[k] = g.reshape(g.shape[0], num_heads, -1)[..., 0]
+        else:                                       # C, n: k-row blocks
+            g = tp.gather_model(t.flatten(1, 2), 1)
+            out[k] = g.reshape((g.shape[0], num_heads, -1) + t.shape[3:])
+    return out
 
 
 def mlstm_forward(p, x, num_heads, xcfg, *, chunk=128, state=None,
@@ -208,46 +277,57 @@ def mlstm_forward(p, x, num_heads, xcfg, *, chunk=128, state=None,
     B, S, D = x.shape
     dt = x.dtype
     d_inner, dh = mlstm_dims(D, xcfg, num_heads)
-    region = split == "heads"
+    region = split is not None
+    grp = _cell_group(split, num_heads)
     conv0 = state["conv"] if state is not None else None
     q, k, v, logi, logf, z, conv_new = _qkv_gates(p, x, num_heads, d_inner,
                                                   dh, conv0, split)
-    hl = q.shape[1]
+    hl, dk = q.shape[1], q.shape[3]
     # a mesh prefill runs the rank's heads' cells on every row
     # (``tp.whole_batch``)
     q, k, v, logi, logf = (tp.gather_batch(t, region)
                            for t in (q, k, v, logi, logf))
     B = q.shape[0]
     if chunk_fn is not None:
-        if state is not None:
+        if state is not None or grp is not None:
             raise ValueError("mlstm_forward: chunk_fn starts from a zero "
-                             "state; a state needs the chunked path")
+                             "state on whole heads; a state or a split "
+                             "head needs the chunked path")
         h = chunk_fn(*(t.transpose(1, 2) for t in (q, k, v, logi, logf)))
         C1 = n1 = m1 = None                              # h: (B,S,H,dh)
     else:
+        if grp is not None:
+            v = grp.gather(v, -1)                        # the head's v
         if state is None:
             f32 = torch.float32
-            C0 = torch.zeros((B, hl, dh, dh), dtype=f32, device=x.device)
-            n0 = torch.zeros((B, hl, dh), dtype=f32, device=x.device)
+            C0 = torch.zeros((B, hl, dk, dh), dtype=f32, device=x.device)
+            n0 = torch.zeros((B, hl, dk), dtype=f32, device=x.device)
             m0 = torch.zeros((B, hl), dtype=f32, device=x.device)
         else:
-            C0, n0, m0 = _head_state(state, ("C", "n", "m"), region)
+            C0, n0, m0 = _head_state(state, ("C", "n", "m"), split, grp)
         c = min(chunk, S)
         if S % c:
             c = S
         carry, hs = (C0, n0, m0), []
+        # with the cell on every row (``tp.whole_batch``), the last chunk's
+        # C and n are needed on the rank's rows only: the JAX step's
+        # program of the "dh" form takes them there
+        own = tp.own_batch if grp is not None else None
         for i in range(S // c):
             sl = slice(i * c, (i + 1) * c)
             carry, h_c = _mlstm_chunk(
                 carry, (q[:, :, sl], k[:, :, sl], v[:, :, sl],
-                        logi[:, :, sl], logf[:, :, sl]), dh)
+                        logi[:, :, sl], logf[:, :, sl]), dh, grp,
+                own if i == S // c - 1 else None)
             hs.append(h_c)
-        C1, n1, m1 = (tp.own_batch(t, region) for t in carry)
+        C1, n1 = (t if own else tp.own_batch(t, region) for t in carry[:2])
+        m1 = tp.own_batch(carry[2], region)
         h = torch.cat(hs, dim=2).transpose(1, 2)         # (B,S,H,dh)
     h = tp.own_batch(h, region)
     B = h.shape[0]
-    h = _headwise_norm(h, _heads_of(p["norm_scale"], region), hl)
-    h = h.reshape(B, S, hl * dh) * F.silu(z)
+    h = _headwise_norm(h, _heads_of(p["norm_scale"], region), hl, grp=grp,
+                       dh=dh)
+    h = h.reshape(B, S, -1) * F.silu(z)
     y = _row(h.to(dt), p["w_down"], region)
     return y, {"C": C1, "n": n1, "m": m1, "conv": conv_new}
 
@@ -265,20 +345,23 @@ def init_mlstm_state(batch, d_model, num_heads, xcfg, dtype, device):
 
 
 def mlstm_decode(p, x, state, num_heads, xcfg, split=None):
-    """Exact sequential single-token step.  ``split`` "heads": the rank
-    steps its heads of the state (stored whole over "model") and the
-    new heads are gathered over "model"."""
+    """Exact sequential single-token step.  ``split`` "heads" / "dh": the
+    rank steps its part of the state (stored whole over "model") and the
+    new parts are gathered over "model"."""
     B, _, D = x.shape
     d_inner, dh = mlstm_dims(D, xcfg, num_heads)
-    region = split == "heads"
+    region = split is not None
+    grp = _cell_group(split, num_heads)
     q, k, v, logi, logf, z, conv_new = _qkv_gates(
         p, x, num_heads, d_inner, dh, state["conv"], split)
     hl = q.shape[1]
-    C0, n0, m0 = _head_state(state, ("C", "n", "m"), region)
+    C0, n0, m0 = _head_state(state, ("C", "n", "m"), split, grp)
     f32 = torch.float32
     qf = q[:, :, 0].to(f32)                              # (B,H,dh)
     kf = k[:, :, 0].to(f32) * (dh ** -0.5)
     vf = v[:, :, 0].to(f32)
+    if grp is not None:
+        vf = grp.gather(vf, -1)                          # the head's v
     li, lf = logi[:, :, 0], logf[:, :, 0]                # (B,H)
     m1 = torch.maximum(lf + m0, li)
     fp = torch.exp(lf + m0 - m1)
@@ -287,14 +370,18 @@ def mlstm_decode(p, x, state, num_heads, xcfg, split=None):
         torch.einsum("bhd,bhe->bhde", kf, vf)
     n1 = fp[..., None] * n0 + ip[..., None] * kf
     num = torch.einsum("bhd,bhde->bhe", qf, C1)
-    den = torch.maximum(torch.einsum("bhd,bhd->bh", n1, qf).abs(),
-                        torch.exp(-m1))
+    nq = torch.einsum("bhd,bhd->bh", n1, qf)
+    if grp is not None:
+        num = grp.scatter_sum(num, -1)
+        nq = grp.psum(nq)
+    den = torch.maximum(nq.abs(), torch.exp(-m1))
     h = (num / den[..., None])[:, None]                  # (B,1,H,dh)
-    h = _headwise_norm(h, _heads_of(p["norm_scale"], region), hl)
-    h = h.reshape(B, 1, hl * dh) * F.silu(z)
+    h = _headwise_norm(h, _heads_of(p["norm_scale"], region), hl, grp=grp,
+                       dh=dh)
+    h = h.reshape(B, 1, -1) * F.silu(z)
     y = _row(h.to(x.dtype), p["w_down"], region)
-    C1, n1, m1 = (tp.gather_model(t, 1, region) for t in (C1, n1, m1))
-    return y, {"C": C1, "n": n1, "m": m1, "conv": conv_new}
+    st = gather_state({"C": C1, "n": n1, "m": m1}, split, num_heads)
+    return y, dict(st, conv=conv_new)
 
 
 # ==========================================================================
@@ -325,16 +412,17 @@ def init_slstm(gen, d_model, num_heads, xcfg, device):
 
 
 def slstm_split(p, num_heads):
-    """How a mesh step splits this sLSTM over "model": "heads" or None
-    (the module docstring)."""
-    return _split(p["w_z"], num_heads)
+    """How a mesh step splits this sLSTM over "model": "heads", "rec" or
+    None (the module docstring)."""
+    return _split(p["w_z"], num_heads, "rec")
 
 
 def _slstm_gates_x(p, x, conv0, split=None):
     """Input-side gate pre-activations (no recurrence): the rank's heads'
-    channels with ``split`` "heads", else every channel."""
+    channels with ``split`` "heads", else every channel ("rec": each
+    rank's columns gathered over "model")."""
     dt = x.dtype
-    region = split == "heads"
+    region = split is not None
     cw = tp.shared if region else tp.whole
     x = tp.into_model(x, region)
     xc, conv_new = _causal_conv(x, cw(p["conv_w"]).to(dt),
@@ -352,6 +440,11 @@ def _slstm_gates_x(p, x, conv0, split=None):
     go = gate(x, "o")
     gi = gate(xc, "i")
     gf = gate(xc, "f")
+    if split == "rec":
+        # every rank runs the whole recurrence on them, so each one's
+        # cotangent is all of it: the backward keeps the rank's columns
+        gz, gi, gf, go = tp.gather_model(torch.stack((gz, gi, gf, go)), -1,
+                                         summed=False).unbind(0)
     return gz, gi, gf, go, conv_new
 
 
@@ -385,7 +478,9 @@ def slstm_forward(p, x, num_heads, xcfg, *, state=None, split=None):
     down-projection column-parallel and gathered, and its
     up-projections row-parallel (g) inside ``tp.row_parallel_glu`` (the
     reference's prefill and decode programs), whole outside it (its
-    train program)."""
+    train program); "rec": the recurrence whole, the GLU's
+    up-projections on the rank's part of ``d_ff`` and its
+    down-projection row-parallel (g)."""
     B, S, D = x.shape
     dt = x.dtype
     dh = D // num_heads
@@ -398,7 +493,7 @@ def slstm_forward(p, x, num_heads, xcfg, *, state=None, split=None):
         carry = tuple(torch.zeros((B, hl, dh), dtype=f32,
                                   device=x.device) for _ in range(4))
     else:
-        carry = tuple(_head_state(state, ("c", "n", "h", "m"), region))
+        carry = tuple(_head_state(state, ("c", "n", "h", "m"), split))
     pre = torch.stack([g.to(f32).reshape(B, S, hl, dh)
                        for g in (gz, gi, gf, go)], dim=3)  # (B,S,H,4,dh)
     # f32 whatever the parameters' dtype: the JAX einsum promotes bf16
@@ -423,14 +518,19 @@ def slstm_forward(p, x, num_heads, xcfg, *, state=None, split=None):
          * (tp.shared if part else tp.whole)(p["norm_scale"])
          ).to(dt)
     h = tp.gather_batch(h, region)
-    if part:
+    if split == "rec":
+        hm = tp.into_model(h)
+        u1, u2 = (hm @ tp.part_of(p[k], 1).to(dt) for k in ("w_up1", "w_up2"))
+    elif part:
         hr = tp.model_slice(h, -1)
         u1, u2 = (tp.out_of_model(hr @ tp.slice_of(p[k], 0).to(dt))
                   for k in ("w_up1", "w_up2"))
     else:
         u1, u2 = (h @ tp.whole(p[k]).to(dt) for k in ("w_up1", "w_up2"))
     u = F.gelu(u1, approximate="tanh") * u2
-    if not region:
+    if split == "rec":
+        y = tp.out_of_model(u @ tp.part_of(p["w_down"], 0).to(dt))
+    elif not region:
         y = u @ tp.whole(p["w_down"]).to(dt)
     else:
         y = tp.gather_model(tp.into_model(u) @ tp.slice_of(
@@ -454,8 +554,7 @@ def init_slstm_state(batch, d_model, num_heads, xcfg, dtype, device):
 
 def slstm_decode(p, x, state, num_heads, xcfg, split=None):
     """One-token step; ``split`` "heads": the rank steps its heads of the
-    state (stored whole over "model"), the new heads gathered."""
+    state (stored whole over "model"), the new heads gathered; "rec":
+    every rank steps all of it."""
     y, st = slstm_forward(p, x, num_heads, xcfg, state=state, split=split)
-    for k in ("c", "n", "h", "m"):
-        st[k] = tp.gather_model(st[k], 1, split == "heads")
-    return y, st
+    return y, gather_state(st, split, num_heads)

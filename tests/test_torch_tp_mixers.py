@@ -23,8 +23,9 @@ Cases:
     1e-5 of the largest value, the caches and states placed by
     ``cache_shardings``, nothing computed whole;
   * one-head forms of xlstm and minicpm3 ("model" cannot split the
-    heads: the mLSTM, the sLSTM and MLA whole on every "model" rank,
-    their weights gathered): train, prefill and decode equal the plain
+    heads: the mLSTM split on dh, the sLSTM's projections and GLU split
+    with its recurrence whole on every "model" rank, MLA on half its
+    query rows a rank): train, prefill and decode equal the plain
     steps;
   * ``tp.halves`` (the split [x | z] product) and ``tp.slice_of`` (a
     leaf stored split on another dim than the compute's) with their
@@ -59,10 +60,11 @@ STATE_TOL = 1e-5
 STEP_TOL = 1e-5
 FLOPS_TOL = 0.01
 TRAIN_ARCHS = W.MIXER_TRAIN_ARCHS + (W.C15_ARCH,)
-# the sub-blocks each "model" rank computes whole where the heads do not
-# divide "model"
-WHOLE_MIXERS = {"xlstm-350m-1h": ("mlstm", "slstm"),
-                "minicpm3-4b-1h": ("mla",)}
+# what each "model" rank computes whole where the heads do not divide
+# "model": only the sLSTM's recurrence (the mLSTM splits its cell on dh,
+# MLA its query rows; ``tests/test_torch_tp_undivided.py``)
+WHOLE_MIXERS = {"xlstm-350m-1h": ("slstm_recurrence",),
+                "minicpm3-4b-1h": ()}
 STEP_FLOPS_ARCHS = ("jamba-v0.1-52b", "xlstm-350m", "minicpm3-4b")
 
 JAX_FLOPS = """
@@ -246,9 +248,9 @@ def test_mixer_train_steps_match_the_plain_step(ranks, mesh_key, arch):
 @pytest.mark.parametrize("arch", W.UNDIVIDED_ARCHS)
 def test_undivided_heads_train_steps_match_the_plain_step(ranks, arch,
                                                           mesh_key):
-    """One head, which "model" cannot split: the mLSTM, the sLSTM and
-    MLA run whole on every "model" rank on their gathered weights, their
-    gradients counted once."""
+    """One head, which "model" cannot split: the mLSTM splits its cell on
+    dh, the sLSTM its projections and GLU (its recurrence whole on every
+    "model" rank), MLA its query rows; their gradients counted once."""
     base = f"train/{mesh_key}/{arch}"
     _against_plain(ranks[0], base)
     assert {tuple(res[f"{base}/whole"]) for res in ranks} == \

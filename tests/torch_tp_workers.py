@@ -44,6 +44,13 @@ are the programs of ``tests/test_torch_tp_mixers.py``: the 4 ranks'
 and ``UNDIVIDED_ARCHS``, and unit checks of ``tp.halves`` and
 ``tp.slice_of``; and the (2, 2) dot FLOPs of
 ``FLOPS_ARCHS`` (``dry_mixers``).
+
+    PYTHONPATH=src python tests/torch_tp_workers.py --undivided INPUTS.npz DIR
+    PYTHONPATH=src python tests/torch_tp_workers.py --dry-undivided OUT.json
+
+are those of ``tests/test_torch_tp_undivided.py``: the (2, 2) "train"
+and "steps" cases of ``UNDIVIDED_JAX_ARCHS``, and their (2, 2) dot FLOPs
+and collective bytes (``dry_undivided``).
 """
 import dataclasses
 import os
@@ -64,9 +71,10 @@ TRAIN_ARCHS = ("yi-9b", "minitron-8b", "whisper-large-v3", "internvl2-2b",
 STEP_ARCHS = ("qwen3-moe-30b-a3b", "whisper-large-v3", "internvl2-2b",
               "minicpm3-4b", "yi-9b-mqa")
 MQA = "-mqa"
-# "...-1h": one head (and one kv head), which "model" cannot split: the
-# mLSTM, the sLSTM and MLA run whole on every "model" rank
+# "...-1h" / "...-3h": one / three heads (and as many kv heads), which a
+# "model" of two ranks does not divide
 ONE_HEAD = "-1h"
+THREE_HEADS = "-3h"
 HOOK_ARCHS = ("yi-9b", "qwen3-moe-30b-a3b")
 # the mixers that the mesh steps split over "model" like the reference
 # (``tests/test_torch_tp_mixers.py``): train parity, prefill / decode
@@ -74,6 +82,9 @@ MIXER_TRAIN_ARCHS = ("xlstm-350m", "minicpm3-4b", "kimi-k2-1t-a32b")
 MIXER_STEP_ARCHS = ("jamba-v0.1-52b", "xlstm-350m")
 # their undivided-heads forms, against the plain steps only
 UNDIVIDED_ARCHS = ("xlstm-350m-1h", "minicpm3-4b-1h")
+# the forms whose heads a "model" of two ranks does not divide, against
+# the JAX mesh step too (``tests/test_torch_tp_undivided.py``)
+UNDIVIDED_JAX_ARCHS = UNDIVIDED_ARCHS + ("whisper-large-v3-3h",)
 C15_ARCH = "qwen3-moe-30b-a3b"
 # the (2, 2) dot-FLOP cells (bf16, remat off): archs, and the (global
 # batch, seq_len) of each kind
@@ -86,15 +97,18 @@ LOSS_SHAPE, LOSS_VOCAB = (2, 8, 64), 50   # (B, S, padded vocab), vocab
 
 
 def config(arch):
-    """The reduced config of ``arch`` (``MQA`` appended: one kv head);
+    """The reduced config of ``arch`` (``MQA`` appended: one kv head;
+    ``ONE_HEAD`` / ``THREE_HEADS``: that many heads and kv heads);
     an MoE's capacity factor 8, so that no rank's dispatch drops a token
     (every path keeps all)."""
     from repro_torch.configs import get_reduced
-    cfg = get_reduced(arch.removesuffix(MQA).removesuffix(ONE_HEAD))
+    cfg = get_reduced(arch.removesuffix(MQA).removesuffix(ONE_HEAD)
+                      .removesuffix(THREE_HEADS))
     if arch.endswith(MQA):
         cfg = dataclasses.replace(cfg, num_kv_heads=1)
-    if arch.endswith(ONE_HEAD):
-        cfg = dataclasses.replace(cfg, num_heads=1, num_kv_heads=1)
+    for suffix, n in ((ONE_HEAD, 1), (THREE_HEADS, 3)):
+        if arch.endswith(suffix):
+            cfg = dataclasses.replace(cfg, num_heads=n, num_kv_heads=n)
     if cfg.moe is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=8.0))
@@ -488,6 +502,13 @@ def _mixers(inp, out, meshes):
     _shared_slice(out, meshes["d2m2"])
 
 
+def _undivided(inp, out, meshes):
+    """The cases of ``tests/test_torch_tp_undivided.py``."""
+    mesh = {"d2m2": meshes["d2m2"]}
+    _train(inp, out, mesh, UNDIVIDED_JAX_ARCHS)
+    _steps(out, mesh, UNDIVIDED_JAX_ARCHS)
+
+
 def _rank(rank, inputs, out_dir, mode="all"):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{out_dir}/store",
@@ -499,6 +520,8 @@ def _rank(rank, inputs, out_dir, mode="all"):
         out = {}
         if mode == "mixers":
             _mixers(inp, out, meshes)
+        elif mode == "undivided":
+            _undivided(inp, out, meshes)
         else:
             _train(inp, out, meshes)
             _steps(out, meshes)
@@ -575,15 +598,40 @@ def dry_mixers(path):
         json.dump(out, f)
 
 
+def dry_undivided(path):
+    """``dry_mixers`` for ``UNDIVIDED_JAX_ARCHS`` (their configs from
+    ``config``)."""
+    import json
+
+    from repro_torch.configs import RunConfig, ShapeConfig
+    from repro_torch.launch import dryrun as dr
+
+    out = {}
+    for arch in UNDIVIDED_JAX_ARCHS:
+        cfg = config(arch)
+        for kind, (b, s) in FLOPS_SIZES.items():
+            shape = ShapeConfig(kind, seq_len=s, global_batch=b, kind=kind)
+            r = dr.dry_run(cfg, shape, RunConfig(model=cfg, shape=shape,
+                                                 remat=False), (2, 2), "cpu")
+            out[f"{arch}/{kind}"] = {
+                "dot_flops": r["counted"]["dot_flops"],
+                "collective_bytes": r["counted"]["collective_bytes"],
+                "tp_whole": r["tp_whole"]}
+    with open(path, "w") as f:
+        json.dump(out, f)
+
+
 if __name__ == "__main__":
     if sys.argv[1] == "--dry":
         dry(sys.argv[2], sys.argv[3:])
     elif sys.argv[1] == "--dry-mixers":
         dry_mixers(sys.argv[2])
+    elif sys.argv[1] == "--dry-undivided":
+        dry_undivided(sys.argv[2])
     else:
         mode = "all"
-        if sys.argv[1] == "--mixers":
-            mode, sys.argv = "mixers", sys.argv[1:]
+        if sys.argv[1] in ("--mixers", "--undivided"):
+            mode, sys.argv = sys.argv[1][2:], sys.argv[1:]
         inputs, out_dir = sys.argv[1:3]
         os.makedirs(out_dir, exist_ok=True)
         spawn(inputs, out_dir, mode)
