@@ -165,51 +165,55 @@ def attention_forward(p, x, *, positions, causal=True, rope_theta=1e4,
 def attention_rows(p, x, grp, *, positions, causal=True, rope_theta=1e4,
                    use_rope=True, qk_norm=False, q_chunk=1024, x_cross=None,
                    flash_fn=None):
-    """``attention_forward`` on one rank's share of a
-    ``tp.HeadGroups`` block: ``p`` holds the block's group of heads, x
-    every row; the rank projects q on its query rows (``grp.rows``: two
-    chunks where causal, so each rank attends to as many keys) and k / v
-    on its share of the kv rows (the encoder's frames for
-    cross-attention), joined over the block (``grp.gather_rows``), and
-    attends each chunk to the keys it sees (the flash kernel with the
-    chunk's ``q_offset`` where ``flash_fn`` is given).  Returns (the
-    output on the rank's rows, zero on the others: a sum over "model"
-    makes it every group's on every row; (k, v) of every kv row for the
-    group's kv heads)."""
+    """``attention_forward`` on one rank's share of a ``tp.HeadGroups``
+    group: ``p`` holds the group's heads (``tp.attention_groups``), x
+    every row.  Where the group is the rank's alone (R = 1), that is
+    ``attention_forward`` on its heads.  Else the rank projects q on its
+    query rows (``grp.rows``: two chunks where causal, so each rank
+    attends to as many keys) and k / v on its share of the kv rows (the
+    encoder's frames for cross-attention), joined over the block
+    (``grp.gather_rows``), and attends each chunk to the keys it sees
+    (the flash kernel with the chunk's ``q_offset`` where ``flash_fn`` is
+    given).  Returns (the output on the rank's rows, zero on the others:
+    a sum over "model" makes it every group's on every row; (k, v) of
+    every kv row for the group's kv heads)."""
     B, S, _ = x.shape
     self_causal = causal and x_cross is None
     spans = grp.rows(S, self_causal)
-    rows = torch.cat([torch.arange(a, b) for a, b in spans]).to(x.device)
-    x_r = x[:, rows]
+    mine = grp.R == 1
+    rows = None if mine else torch.cat(
+        [torch.arange(a, b) for a, b in spans]).to(x.device)
+    x_r, pos_r = (x, positions) if mine else (x[:, rows], positions[rows])
     if x_cross is None:
-        kv_src, kv_len = x_r, S
-        kv_pos = positions
-        kv_pos_r = positions[rows]
+        kv_src, kv_len, kv_pos, kv_pos_r = x_r, S, positions, pos_r
     else:
         kv_len = x_cross.shape[1]
         (a, b), = grp.rows(kv_len, False)
-        kv_src = x_cross[:, a:b]
+        kv_src = x_cross if mine else x_cross[:, a:b]
         kv_pos = torch.arange(kv_len, device=x.device)
         kv_pos_r = kv_pos[a:b]
-    q, k, v = _project_qkv(p, x_r, kv_src, rope_theta, positions[rows],
-                           kv_pos_r, qk_norm, use_rope and x_cross is None)
+    q, k, v = _project_qkv(p, x_r, kv_src, rope_theta, pos_r, kv_pos_r,
+                           qk_norm, use_rope and x_cross is None)
     k, v = (grp.gather_rows(t, kv_len, self_causal) for t in (k, v))
     outs, at = [], 0
     for a, b in spans:
-        qc = q[:, at:at + b - a]
+        qc = q if mine else q[:, at:at + b - a]
         at += b - a
         end = b if self_causal else kv_len
+        kc, vc = (k, v) if end == kv_len else (k[:, :end], v[:, :end])
         if flash_fn is not None and x_cross is None:
-            outs.append(flash_fn(qc, k[:, :end], v[:, :end], causal=causal,
+            outs.append(flash_fn(qc, kc, vc, causal=causal,
                                  q_offset=a if causal else 0))
         else:
             outs.append(chunked_attention(
-                qc, k[:, :end], v[:, :end], q_positions=positions[a:b],
+                qc, kc, vc, q_positions=positions[a:b],
                 kv_positions=kv_pos[:end], causal=self_causal,
                 q_chunk=q_chunk))
-    y = torch.einsum("bshe,hed->bsd", torch.cat(outs, dim=1),
-                     p["wo"].to(x.dtype))
-    return y.new_zeros((B, S, y.shape[-1])).index_copy(1, rows, y), (k, v)
+    out = outs[0] if mine else torch.cat(outs, dim=1)
+    y = torch.einsum("bshe,hed->bsd", out, p["wo"].to(x.dtype))
+    if not mine:
+        y = y.new_zeros((B, S, y.shape[-1])).index_copy(1, rows, y)
+    return y, (k, v)
 
 
 def init_kv_cache(batch, max_len, num_kv_heads, head_dim, dtype, device):
@@ -219,8 +223,7 @@ def init_kv_cache(batch, max_len, num_kv_heads, head_dim, dtype, device):
 
 
 def attention_decode(p, x, cache, *, pos, rope_theta=1e4, use_rope=True,
-                     qk_norm=False, cross=False, seq=None,
-                     heads_split=False, head_groups=None):
+                     qk_norm=False, cross=False, seq=None, head_groups=None):
     """One-token decode.  x: (B,1,D); cache {"k","v"}: (B,Smax,Hkv,D);
     pos: int, the index of the new token.  Returns (out, cache).
 
@@ -235,16 +238,15 @@ def attention_decode(p, x, cache, *, pos, rope_theta=1e4, use_rope=True,
     cache holds the rank's slice [offset, offset + Smax) of a sequence of
     ``length`` split over ``groups`` (``tp.seq_split``): the rank whose
     slice holds ``pos`` writes, and the softmax is combined over the
-    groups; ``heads_split``: ``p`` holds the rank's q heads (and kv
-    heads, or every kv head), so q (and the new k / v) are gathered over
-    "model" before attention and the output keeps the rank's heads for
-    its row-parallel ``wo`` (reduce-scattered to them where "model" is
-    one of the sequence's groups); ``head_groups`` (a ``tp.HeadGroups``):
-    ``p`` holds the rank's group of q heads (``wk`` / ``wv`` whole); the
-    block's ranks split the rows (``batch_rows``) for q and for ``wo``,
-    q gathered over "model" one copy a group (where R does not divide
-    the rows, each rank takes every row and the block's first adds its
-    group's output)."""
+    groups; ``head_groups`` (a ``tp.HeadGroups``): ``p`` holds the
+    rank's group of q heads (and its kv slice, or every kv head), so q
+    (and the new k / v) are gathered over "model" before attention, one
+    copy a group, and the output keeps the group's heads for its
+    row-parallel ``wo`` (reduce-scattered to them where each rank is a
+    group and "model" is one of the sequence's groups); a block of R > 1
+    ranks splits the rows (``batch_rows``) for q and for ``wo`` (where R
+    does not divide the rows, each rank takes every row and the block's
+    first adds its group's output)."""
     dt = x.dtype
     # filled on the device: no host-to-device copy to wait on
     pos_t = torch.full((1,), pos, dtype=torch.int64, device=x.device)
@@ -256,10 +258,7 @@ def attention_decode(p, x, cache, *, pos, rope_theta=1e4, use_rope=True,
         q = rms_head_norm(q, p["q_norm"])
     if use_rope and not cross:
         q = apply_rope(q, pos_t, rope_theta)
-    if heads_split:
-        h_loc = q.shape[2]
-        q = tp.gather_model(q, 2)
-    elif head_groups is not None:
+    if head_groups is not None:
         q = head_groups.gather_heads(q, rows=part is not None)
 
     smax = cache["k"].shape[1]
@@ -282,6 +281,7 @@ def attention_decode(p, x, cache, *, pos, rope_theta=1e4, use_rope=True,
         kv_valid = pos + 1
 
     kv_positions = torch.arange(smax, device=x.device)
+    reduced = False
     if not groups:
         out = chunked_attention(q, cache["k"].to(dt), cache["v"].to(dt),
                                 q_positions=pos_t, kv_positions=kv_positions,
@@ -291,19 +291,19 @@ def attention_decode(p, x, cache, *, pos, rope_theta=1e4, use_rope=True,
         if kv_valid is not None:
             mask = (kv_positions + offset < kv_valid)[None, None, :].expand(
                 q.shape[0], 1, smax)
-        # where "model" splits the sequence too, its sum over the ranks'
-        # slices leaves each rank its own heads (a reduce-scatter)
-        model = tp.model_group() if heads_split else None
+        # where "model" splits the sequence too and each rank is a group,
+        # its sum over the ranks' slices leaves each rank its own heads (a
+        # reduce-scatter)
+        model = tp.model_group() if head_groups is not None and \
+            head_groups.R == 1 else None
+        reduced = model is not None and model in groups
         out = _sdpa(q, cache["k"].to(dt), cache["v"].to(dt), mask, groups,
-                    heads_to=model if model in groups else None)
-        heads_split = heads_split and model not in groups
-    if heads_split:
-        c = tp.model_rank()
-        out = out[:, :, c * h_loc:(c + 1) * h_loc]
-    elif head_groups is not None:
+                    heads_to=model if reduced else None)
+    if head_groups is None:
+        return torch.einsum("bshe,hed->bsd", out, p["wo"].to(dt)), cache
+    if not reduced:
         out = out[:, :, head_groups.heads]
-        if part is not None:
-            out = out[part]
-        y = torch.einsum("bshe,hed->bsd", out, p["wo"].to(dt))
-        return head_groups.add_rows(y, x.shape[0], part), cache
-    return torch.einsum("bshe,hed->bsd", out, p["wo"].to(dt)), cache
+    if part is not None:
+        out = out[part]
+    y = torch.einsum("bshe,hed->bsd", out, p["wo"].to(dt))
+    return head_groups.add_rows(y, x.shape[0], part), cache

@@ -10,15 +10,14 @@ place as the port's KV caches are.
 
 Every function here takes the weights as plain tensors or as a mesh
 step's ``tp.Stored`` leaves, split over "model" as the rules store them
-(``plan``).  Where the rule splits the heads ("heads"), as the JAX
-package's compiled step splits them: the down-projections ``w_dq`` /
+(``plan``: ``tp.HeadGroups``).  The down-projections ``w_dq`` /
 ``w_dkv`` / ``w_kr`` column-parallel on their rank dim and the latents
 gathered whole over "model" (the JAX model constrains them to
-``("batch", None, None)``); the heads, their up-projections, the
-attention and ``wo`` on the rank's heads.  Where "model" does not divide
-the heads ("groups", the up-projections stored whole): the same
-down-projections, and ``tp.HeadGroups``' split of the heads' work, each
-block of R ranks on one group of heads, each of its ranks on its share
+``("batch", None, None)``).  Where the rule splits the heads, as the JAX
+package's compiled step splits them, the heads, their up-projections,
+the attention and ``wo`` on the rank's heads.  Where "model" does not
+divide the heads (the up-projections stored whole), each block of R
+ranks takes one group of heads, each of its ranks its share
 of the query rows (``HeadGroups.rows``: two chunks of 2R, so that every
 rank attends to as many keys), k and v up-projected on those rows and
 joined over the block, the output's rows summed over "model" (g); in a
@@ -54,46 +53,33 @@ def init_mla(gen, d_model, num_heads, mla, device):
     }
 
 
-def heads_split(p) -> bool:
-    """Whether the rule splits this MLA's heads over "model" (False for
-    plain tensors)."""
-    return tp.split_on(p["w_uq"], 1)
-
-
 def plan(p, length=None):
-    """(mode, groups): ("heads", None) where the rule splits the heads;
-    ("groups", ``tp.HeadGroups``) where a "model" of more than one rank
-    holds them whole and (train, prefill: ``length`` query rows) its
-    blocks' chunks divide the rows; (None, None) on plain tensors or
-    where "model" computes all of MLA on every rank."""
-    if heads_split(p):
-        return "heads", None
-    if not tp.is_stored(p["w_uq"]) or tp.model_size() == 1:
-        return None, None
+    """The ``tp.HeadGroups`` of a mesh step's MLA (each rank its own heads
+    where "model" divides them); None on plain tensors or where (train,
+    prefill: ``length`` query rows) a block's chunks do not divide the
+    rows and "model" computes all of MLA on every rank."""
+    if not tp.is_stored(p["w_uq"]):
+        return None
     grp = tp.HeadGroups(p["w_uq"].shape[1])
     if length is not None and grp.rows(length, True) is None:
-        return None, None
-    return "groups", grp
+        return None
+    return grp
 
 
 def _norm(p, region):
     return {k: (tp.shared if region else tp.whole)(v) for k, v in p.items()}
 
 
-def _up(w, mode, grp, dim=1):
-    """An up-projection (or ``wo``, ``dim`` 0) as ``mode`` computes with
-    it: the rank's heads, its group's heads, or all of it."""
-    if mode == "heads":
-        return tp.local(w)
-    if mode == "groups":
-        return tp.shared(w).narrow(dim, grp.heads.start, grp.hg)
-    return tp.whole(w)
+def _up(w, grp, dim=1):
+    """An up-projection (or ``wo``, ``dim`` 0) on the group's heads
+    (``HeadGroups.part``), or all of it without a group."""
+    return tp.whole(w) if grp is None else grp.part(w, dim)
 
 
-def _latents(p, x, positions, mla, rope_theta, down=None, split=None):
-    """Compressed latents for the kv side: c_kv (B,S,r), k_rope (B,S,dr).
-    ``split``: ``plan``'s (mode, groups), ``plan(p)``'s by default."""
-    region = (split or plan(p))[0] is not None
+def _latents(p, x, positions, mla, rope_theta, down=None, grp=None):
+    """Compressed latents for the kv side: c_kv (B,S,r), k_rope (B,S,dr);
+    ``grp``: ``plan``'s."""
+    region = grp is not None
     down = down or tp.Columns(x, region)
     c_kv = apply_norm(_norm(p["kv_norm"], region), down(p["w_dkv"]))
     k_rope = down(p["w_kr"])[:, :, None, :]                    # (B,S,1,dr)
@@ -101,21 +87,19 @@ def _latents(p, x, positions, mla, rope_theta, down=None, split=None):
     return c_kv, k_rope
 
 
-def _queries(p, x, positions, mla, rope_theta, down=None, split=None,
+def _queries(p, x, positions, mla, rope_theta, down=None, grp=None,
              rows=None, part=None):
-    """(q_nope (B,S,H,nope), q_rope (B,S,H,rope)): the rank's heads where
-    they are split, its group's on its ``rows`` (or its ``part`` of the
-    batch) with "groups".  ``split`` as ``_latents`` takes it."""
+    """(q_nope (B,S,H,nope), q_rope (B,S,H,rope)): the group's heads
+    (``grp``, ``plan``'s) on the rank's ``rows`` (or its ``part`` of the
+    batch)."""
     dt = x.dtype
-    mode, grp = split or plan(p)
-    down = down or tp.Columns(x, mode is not None)
-    c_q = apply_norm(_norm(p["q_norm"], mode is not None), down(p["w_dq"]))
+    down = down or tp.Columns(x, grp is not None)
+    c_q = apply_norm(_norm(p["q_norm"], grp is not None), down(p["w_dq"]))
     if rows is not None:
         c_q, positions = c_q[:, rows], positions[rows]
     if part is not None:
         c_q = c_q[part]
-    q = torch.einsum("bsr,rhe->bshe", c_q,
-                     _up(p["w_uq"], mode, grp).to(dt))
+    q = torch.einsum("bsr,rhe->bshe", c_q, _up(p["w_uq"], grp).to(dt))
     q_nope = q[..., :mla.qk_nope_head_dim]
     q_rope = apply_rope(q[..., mla.qk_nope_head_dim:], positions, rope_theta)
     return q_nope, q_rope
@@ -127,21 +111,19 @@ def mla_forward(p, x, *, positions, mla, rope_theta, q_chunk=1024):
     compressed cache."""
     dt = x.dtype
     B, S, _ = x.shape
-    mode, grp = plan(p, S)
-    down = tp.Columns(x, mode is not None)
+    grp = plan(p, S)
+    down = tp.Columns(x, grp is not None)
     rows = spans = None
-    if mode == "groups":
+    if grp is not None and grp.R > 1:
         spans = grp.rows(S, True)
         rows = torch.cat([torch.arange(a, b) for a, b in spans]).to(x.device)
-    q_nope, q_rope = _queries(p, x, positions, mla, rope_theta, down,
-                              (mode, grp), rows)
-    c_kv, k_rope = _latents(p, x, positions, mla, rope_theta, down,
-                            (mode, grp))
+    q_nope, q_rope = _queries(p, x, positions, mla, rope_theta, down, grp,
+                              rows)
+    c_kv, k_rope = _latents(p, x, positions, mla, rope_theta, down, grp)
     c_src = c_kv if rows is None else c_kv[:, rows]
     k_nope = torch.einsum("bsr,rhe->bshe", c_src,
-                          _up(p["w_uk"], mode, grp).to(dt))
-    v = torch.einsum("bsr,rhe->bshe", c_src,
-                     _up(p["w_uv"], mode, grp).to(dt))
+                          _up(p["w_uk"], grp).to(dt))
+    v = torch.einsum("bsr,rhe->bshe", c_src, _up(p["w_uv"], grp).to(dt))
     if rows is not None:                  # every row of the group's k, v
         k_nope, v = (grp.gather_rows(t, S, True) for t in (k_nope, v))
     H = q_nope.shape[2]
@@ -161,10 +143,10 @@ def mla_forward(p, x, *, positions, mla, rope_theta, q_chunk=1024):
                 causal=True, q_chunk=q_chunk))
             at += b - a
         out = torch.cat(outs, dim=1)
-    y = torch.einsum("bshe,hed->bsd", out, _up(p["wo"], mode, grp, 0).to(dt))
+    y = torch.einsum("bshe,hed->bsd", out, _up(p["wo"], grp, 0).to(dt))
     if rows is not None:
         y = y.new_zeros((B, S, y.shape[-1])).index_copy(1, rows, y)
-    return tp.out_of_model(y, mode is not None), (c_kv, k_rope)
+    return tp.out_of_model(y, grp is not None), (c_kv, k_rope)
 
 
 def init_mla_cache(batch, max_len, mla, dtype, device):
@@ -183,18 +165,17 @@ def mla_decode(p, x, cache, *, pos, mla, rope_theta, seq=None):
     heads split, the rank absorbs its heads' queries, the scores run
     over every head (gathered over "model") against the rank's slice of
     the sequence, and the rank's heads of the context leave through
-    ``w_uv`` and ``wo`` (g); "groups" the same on its group's heads and
-    its share of the rows (``HeadGroups.batch_rows``)."""
+    ``w_uv`` and ``wo`` (g); a block of ranks on a group of heads
+    (``tp.HeadGroups``) splits the rows (``HeadGroups.batch_rows``)."""
     dt = x.dtype
-    mode, grp = plan(p)
-    region = mode is not None
+    grp = plan(p)
+    region = grp is not None
     pos_t = torch.full((1,), pos, dtype=torch.int64, device=x.device)
     down = tp.Columns(x, region)
-    part = grp.batch_rows(x.shape[0]) if mode == "groups" else None
-    q_nope, q_rope = _queries(p, x, pos_t, mla, rope_theta, down,
-                              (mode, grp), part=part)         # (B,1,H,*)
-    c_new, kr_new = _latents(p, x, pos_t, mla, rope_theta, down,
-                             (mode, grp))
+    part = grp.batch_rows(x.shape[0]) if region else None
+    q_nope, q_rope = _queries(p, x, pos_t, mla, rope_theta, down, grp,
+                              part=part)                      # (B,1,H,*)
+    c_new, kr_new = _latents(p, x, pos_t, mla, rope_theta, down, grp)
     smax = cache["c_kv"].shape[1]
     groups, offset, length = seq or ((), 0, smax)
     at = min(max(pos, 0), length - 1) - offset
@@ -205,13 +186,10 @@ def mla_decode(p, x, cache, *, pos, mla, rope_theta, seq=None):
 
     # absorb W_uk into q: q_abs (B,1,H,r)
     q_abs = torch.einsum("bshe,rhe->bshr", q_nope,
-                         _up(p["w_uk"], mode, grp).to(dt))
-    if mode == "groups":
+                         _up(p["w_uk"], grp).to(dt))
+    if region:
         q_abs, q_rope = (grp.gather_heads(t, rows=part is not None)
                          for t in (q_abs, q_rope))
-    else:
-        q_abs = tp.gather_model(q_abs, 2, region)
-        q_rope = tp.gather_model(q_rope, 2, region)
     scale = (mla.qk_nope_head_dim + mla.qk_rope_head_dim) ** -0.5
     scores = (torch.einsum("bshr,btr->bhst", q_abs, c_kv) +
               torch.einsum("bshe,bte->bhst", q_rope, k_rope))
@@ -222,15 +200,12 @@ def mla_decode(p, x, cache, *, pos, mla, rope_theta, seq=None):
     probs = tp.seq_softmax(scores, groups).to(dt)
     ctx = tp.seq_sum(torch.einsum("bhst,btr->bshr", probs, c_kv),
                      groups)                                      # (B,1,H,r)
-    if mode == "groups":
+    if region:
         ctx = ctx[:, :, grp.heads]
         if part is not None:
             ctx = ctx[part]
-    else:
-        ctx = tp.model_slice(ctx, 2, region)
-    out = torch.einsum("bshr,rhe->bshe", ctx,
-                       _up(p["w_uv"], mode, grp).to(dt))
-    y = torch.einsum("bshe,hed->bsd", out, _up(p["wo"], mode, grp, 0).to(dt))
-    if mode == "groups":
+    out = torch.einsum("bshr,rhe->bshe", ctx, _up(p["w_uv"], grp).to(dt))
+    y = torch.einsum("bshe,hed->bsd", out, _up(p["wo"], grp, 0).to(dt))
+    if region:
         y = grp.add_rows(y, x.shape[0], part)
     return tp.out_of_model(y, region), cache

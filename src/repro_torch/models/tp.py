@@ -451,14 +451,15 @@ class _ScatterSum(torch.autograd.Function):
 
 
 class HeadGroups:
-    """How the "model" ranks share ``num_heads`` heads that they do not
-    divide: ``g = gcd(H, m)`` groups of ``hg = H / g`` consecutive heads,
-    group ``index`` on the ``R = m / g`` consecutive ranks of its block
-    (``block_group``), where this rank is number ``j``.  The ranks of a
-    block split their group's work among them: attention and MLA its
-    query rows (``rows``) with k and v joined over the block, the mLSTM
-    (one head a block) its head dim.  Every collective of the block runs
-    on ``group``; on plain tensors nothing here is used."""
+    """How the "model" ranks share ``num_heads`` heads: ``g = gcd(H, m)``
+    groups of ``hg = H / g`` consecutive heads, group ``index`` on the
+    ``R = m / g`` consecutive ranks of its block (``block_group``), where
+    this rank is number ``j``.  Where "model" divides the heads, R is 1:
+    each rank its own group, every row its own (the heads split).  Else
+    the ranks of a block split their group's work among them: attention
+    and MLA its query rows (``rows``) with k and v joined over the block,
+    the mLSTM (one head a block) its head dim.  Every collective of the
+    block runs on ``group``."""
 
     def __init__(self, num_heads):
         m = model_size()
@@ -472,6 +473,14 @@ class HeadGroups:
     def first(self) -> bool:
         """Whether this rank is its block's first."""
         return self.j == 0
+
+    def part(self, leaf, dim):
+        """The group's heads (along ``dim``) of a head-major weight: the
+        rank's stored piece where the rule splits it there (R is 1),
+        else all of it through ``shared`` cut to the group's heads."""
+        if split_on(leaf, dim):
+            return local(leaf)
+        return shared(leaf).narrow(dim, self.heads.start, self.hg)
 
     def psum(self, x):
         """``x`` summed over the block, each rank's cotangent its share."""
@@ -493,10 +502,12 @@ class HeadGroups:
 
     def rows(self, length, causal):
         """The rank's query rows of a sequence of ``length`` as (start,
-        end) spans: of 2R equal chunks, chunk j and chunk 2R-1-j where
-        the attention is causal (every rank of the block then attends to
-        as many keys), else the j-th of R chunks.  None when the chunks
-        do not divide ``length``."""
+        end) spans: every row where R is 1; of 2R equal chunks, chunk j
+        and chunk 2R-1-j where the attention is causal (every rank of the
+        block then attends to as many keys), else the j-th of R chunks.
+        None when the chunks do not divide ``length``."""
+        if self.R == 1:
+            return [(0, length)]
         n = 2 * self.R if causal else self.R
         if length % n:
             return None
@@ -523,8 +534,9 @@ class HeadGroups:
 
     def batch_rows(self, n):
         """The rank's share of a decode step's ``n`` rows (the block's
-        ranks split them), None where R does not divide ``n``."""
-        if n % self.R:
+        ranks split them); None for every row (R is 1, or R does not
+        divide ``n``)."""
+        if self.R == 1 or n % self.R:
             return None
         r = n // self.R
         return slice(self.j * r, (self.j + 1) * r)
@@ -534,6 +546,8 @@ class HeadGroups:
         ``dim``) gathered over "model", one copy of each group's; with
         ``rows``, ``x`` holds the rank's ``batch_rows`` (dim 0), and
         every row comes back too (forward only: decode)."""
+        if model_group() is None:
+            return x
         if rows:
             x = all_gather(x, model_group(), model_size(), 0)
             x = x.reshape((self.g, self.R, x.shape[0] // model_size())
@@ -557,13 +571,6 @@ class HeadGroups:
         out = y.new_zeros((n,) + tuple(y.shape[1:]))
         out[part] = y
         return out
-
-
-def undivided(num_heads) -> bool:
-    """Whether the current mesh's "model" has more than one rank and does
-    not divide ``num_heads``."""
-    m = model_size()
-    return m > 1 and num_heads % m != 0
 
 
 # --------------------------------------------------------------------------
@@ -625,7 +632,8 @@ def whole_batch(steps):
     mLSTM's cell and the sLSTM's GLU of the rank's heads on every row
     of the batch (it splits their projections' contraction over "data"
     instead), and the port's mesh prefill does the same inside this
-    context."""
+    context, but for the mLSTM's "dh" cell, which keeps the rank's
+    rows."""
     prev = getattr(_state, "rows", None)
     _state.rows = tuple(steps)
     try:
@@ -706,79 +714,57 @@ def note_whole(kind: str) -> None:
 # attention: the rank's heads
 # --------------------------------------------------------------------------
 
-def kv_heads(num_heads, num_kv_heads, wk_split: bool, rank=None):
-    """The kv heads that the q heads of "model" rank ``rank`` (this
-    rank's by default) read: its own slice when "model" splits ``wk`` /
-    ``wv``; else (GQA selection) the one head its ``num_heads / m`` q
-    heads map to.  Raises where the rank's q heads straddle a group of G
-    (a rank's q-head count that divides no G; a count that G divides
-    would make "model" divide the kv heads, and the rule split them)."""
-    m = model_size()
-    c = model_rank() if rank is None else rank
-    if wk_split:
-        hk = num_kv_heads // m
+def group_kv_heads(grp, num_heads, num_kv_heads, group=None):
+    """The kv heads that the q heads of head group ``group`` (this rank's
+    by default) read: its 1/g of them where the g groups divide the kv
+    heads; else (GQA selection) the one head its ``hg`` q heads map to.
+    Raises where a group's q heads straddle a kv group of G (an ``hg``
+    that divides no G)."""
+    c = grp.index if group is None else group
+    if num_kv_heads % grp.g == 0:
+        hk = num_kv_heads // grp.g
         return list(range(c * hk, (c + 1) * hk))
-    h_loc = num_heads // m
-    group = num_heads // num_kv_heads
-    if group % h_loc == 0:
-        return [c * h_loc // group]
+    per_kv = num_heads // num_kv_heads
+    if per_kv % grp.hg == 0:
+        return [c * grp.hg // per_kv]
     raise ValueError(
-        f"tensor-parallel attention: {num_heads} q heads over {m} ranks "
-        f"({h_loc} a rank) cannot select from {num_kv_heads} kv heads "
-        f"(groups of {group})")
+        f"tensor-parallel attention: {num_heads} q heads in {grp.g} groups "
+        f"({grp.hg} a group) cannot select from {num_kv_heads} kv heads "
+        f"(groups of {per_kv})")
 
 
-def attention_weights(p, num_heads, num_kv_heads, *, select=True):
-    """(the weights a rank computes attention with, the kv heads of every
-    "model" rank or None).  With the heads split over "model": ``wq`` /
-    ``wo`` the rank's heads, ``wk`` / ``wv`` its kv slice or (``select``)
-    the kv heads it reads, through f; the qk-norm scales through f.
-    Otherwise every weight whole and None."""
-    if not split_on(p["wq"], 1):
-        return {k: whole(w) for k, w in p.items()}, None
-    out = {"wq": local(p["wq"]), "wo": local(p["wo"])}
-    wk_split = split_on(p["wk"], 1)
-    every = [kv_heads(num_heads, num_kv_heads, wk_split, r)
+def attention_groups(p, num_heads, num_kv_heads, length=None, causal=True,
+                     kv_length=None, select=True):
+    """(the weights of this rank's head group, the kv heads of every
+    "model" rank, the ``HeadGroups``) of stored attention weights:
+    ``wq`` / ``wo`` the group's heads (``HeadGroups.part``: the rank's
+    stored piece where the rule splits the heads); ``wk`` / ``wv`` the
+    rank's stored slice where the rule splits them, else the kv heads
+    the group reads (``select``) or every kv head, through f; the
+    qk-norm scales through f.  None on plain tensors, or where a block's
+    chunks divide neither the ``length`` query rows nor the
+    ``kv_length`` keys of cross-attention (then "model" computes it
+    whole)."""
+    if not is_stored(p["wq"]):
+        return None
+    grp = HeadGroups(num_heads)
+    if (length is not None and grp.rows(length, causal) is None) or (
+            kv_length is not None and grp.rows(kv_length, False) is None):
+        return None
+    every = [group_kv_heads(grp, num_heads, num_kv_heads, r // grp.R)
              for r in range(model_size())]
+    out = {"wq": grp.part(p["wq"], 1), "wo": grp.part(p["wo"], 0)}
     heads = every[model_rank()]
     for k in ("wk", "wv"):
-        if wk_split:
+        if split_on(p[k], 1):
             out[k] = local(p[k])
         elif select:
             out[k] = shared(p[k])[:, heads[0]:heads[-1] + 1]
         else:
-            out[k] = whole(p[k])
+            out[k] = shared(p[k])
     for k in ("q_norm", "k_norm"):
         if k in p:
             out[k] = shared(p[k])
-    return out, every
-
-
-def attention_groups(p, num_heads, num_kv_heads, length, causal,
-                     kv_length=None):
-    """(the weights of this rank's group of heads, the kv heads of every
-    "model" rank, the ``HeadGroups``) where "model" does not divide the
-    heads (the rule stores them whole) and its groups divide the kv
-    heads, and their blocks' chunks divide the ``length`` query rows
-    (and the ``kv_length`` keys of cross-attention); else None.  Every
-    weight is read through ``shared`` (the gradient summed over
-    "model": each group adds its heads' share)."""
-    if not is_stored(p["wq"]) or not undivided(num_heads):
-        return None
-    grp = HeadGroups(num_heads)
-    if num_kv_heads % grp.g or grp.rows(length, causal) is None or (
-            kv_length is not None and grp.rows(kv_length, False) is None):
-        return None
-    hk = num_kv_heads // grp.g
-    out = {"wq": shared(p["wq"])[:, grp.heads],
-           "wo": shared(p["wo"])[grp.heads]}
-    for k in ("wk", "wv"):
-        out[k] = shared(p[k])[:, grp.index * hk:(grp.index + 1) * hk]
-    for k in ("q_norm", "k_norm"):
-        if k in p:
-            out[k] = shared(p[k])
-    every = [list(range(r // grp.R * hk, (r // grp.R + 1) * hk))
-             for r in range(model_size())]
     return out, every, grp
 
 

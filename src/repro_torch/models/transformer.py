@@ -186,43 +186,35 @@ def apply_subblock_decode(p, x, state, cfg, mixer, ffn, *, pos):
 
 def _attention_tp(p, h, cfg, kind, *, collect_cache, x_cross=None,
                   **kwargs):
-    """``attention_forward`` on this rank's heads between f and g where
-    "model" splits them; where it does not, on its share of a group of
-    heads (``tp.attention_groups``, ``attention.attention_rows``); whole
-    otherwise.  The cache seeds leave with every kv head and the rank's
-    slice of the sequence (``tp.heads_to_seq``)."""
-    w, every = tp.attention_weights(p, cfg.num_heads, cfg.num_kv_heads)
-    split = every is not None
-    grp = None
-    if not split:
-        groups = tp.attention_groups(
-            p, cfg.num_heads, cfg.num_kv_heads, h.shape[1],
-            kwargs["causal"] and x_cross is None,
-            None if x_cross is None else x_cross.shape[1])
-        if groups is None:
-            tp.note_whole(kind)
-        else:
-            w, every, grp = groups
-            split = True
-    if x_cross is not None:
-        x_cross = tp.into_model(x_cross, split)
-    if grp is not None:
-        y, (k, v) = attn.attention_rows(w, tp.into_model(h), grp,
-                                        x_cross=x_cross, **kwargs)
-    else:
-        y, (k, v) = attn.attention_forward(w, tp.into_model(h, split),
+    """``attention.attention_rows`` on this rank's share of its head group
+    between f and g (``tp.attention_groups``: its own heads where "model"
+    divides them); whole where the group's chunks do not divide the rows.
+    The cache seeds leave with every kv head and the rank's slice of the
+    sequence (``tp.heads_to_seq``)."""
+    groups = tp.attention_groups(
+        p, cfg.num_heads, cfg.num_kv_heads, h.shape[1],
+        kwargs["causal"] and x_cross is None,
+        None if x_cross is None else x_cross.shape[1])
+    if groups is None:
+        tp.note_whole(kind)
+        y, (k, v) = attn.attention_forward(tp.whole_tree(p), h,
                                            x_cross=x_cross, **kwargs)
-    if split and collect_cache:
+        return y, {"k": k, "v": v}
+    w, every, grp = groups
+    if x_cross is not None:
+        x_cross = tp.into_model(x_cross)
+    y, (k, v) = attn.attention_rows(w, tp.into_model(h), grp,
+                                    x_cross=x_cross, **kwargs)
+    if collect_cache:
         k = tp.heads_to_seq(k, every, cfg.num_kv_heads)
         v = tp.heads_to_seq(v, every, cfg.num_kv_heads)
-    return tp.out_of_model(y, split), {"k": k, "v": v}
+    return tp.out_of_model(y), {"k": k, "v": v}
 
 
 def _mla_plan(p, length=None):
     """``mla.plan``; MLA recorded whole where "model" computes all of it
     on every rank."""
-    mode, _ = mla_mod.plan(p, length)
-    if mode is None:
+    if mla_mod.plan(p, length) is None:
         tp.note_whole("mla")
 
 
@@ -299,28 +291,21 @@ def _ffn_tp(p, h, cfg):
 
 
 def _attention_decode_tp(p, h, cache, cfg, kind, **kwargs):
-    """``attention_decode`` on this rank's heads where "model" splits them
-    (q and the new k / v gathered, the output's heads kept for ``wo``,
-    then g), on its group of heads where "model" does not divide them
-    (``tp.HeadGroups``: the block's ranks split the batch rows), against
-    the rank's slice of the cache's sequence."""
-    w, every = tp.attention_weights(p, cfg.num_heads, cfg.num_kv_heads,
-                                    select=False)
-    split = every is not None
-    grp = None
-    if not split and tp.is_stored(p["wq"]) and \
-            tp.undivided(cfg.num_heads):
-        grp = tp.HeadGroups(cfg.num_heads)
-        w = {k: tp.whole(v) for k, v in p.items()}
-        w["wq"] = w["wq"][:, grp.heads]
-        w["wo"] = w["wo"][grp.heads]
-    elif not split:
-        tp.note_whole(kind)
+    """``attention_decode`` on this rank's head group (``tp.HeadGroups``:
+    q and the new k / v gathered, the output's heads kept for ``wo``,
+    then g; a block of ranks splits the batch rows) against the rank's
+    slice of the cache's sequence; whole on plain tensors."""
+    groups = tp.attention_groups(p, cfg.num_heads, cfg.num_kv_heads,
+                                 select=False)
     local = {k: tp.own(v) for k, v in cache.items()}
+    if groups is None:
+        tp.note_whole(kind)
+        w, grp = tp.whole_tree(p), None
+    else:
+        w, _, grp = groups
     y, _ = attn.attention_decode(w, h, local, seq=tp.seq_split(cache["k"]),
-                                 heads_split=split, head_groups=grp,
-                                 **kwargs)
-    return tp.out_of_model(y, split or grp is not None), local
+                                 head_groups=grp, **kwargs)
+    return tp.out_of_model(y, grp is not None), local
 
 
 def init_subblock_state(cfg, idx_def, batch, max_len, dtype, device,

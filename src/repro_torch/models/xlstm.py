@@ -116,14 +116,13 @@ def _headwise_norm(h, scale, num_heads, eps=1e-6, grp=None, dh=None):
     return (out * scale.reshape(H, dhl)).to(h.dtype)
 
 
-def _mlstm_chunk(carry, qkv_if, dh, grp=None, own=None):
+def _mlstm_chunk(carry, qkv_if, dh, grp=None):
     """One chunk of the stabilized chunkwise-parallel mLSTM.
     carry: C (B,H,dk,dv), n (B,H,dk), m (B,H).
     qkv_if: q,k,v (B,H,c,dh); logi, logf (B,H,c).  ``grp`` (the "dh"
     split): q and k hold the rank's slice of the head's dh, v all of it;
     C and n the rank's block of k rows; h comes back on the rank's v
-    columns.  ``own``: the rows the end-of-chunk C and n are needed for
-    (a function of a batch-first tensor; all of them by default)."""
+    columns."""
     C0, n0, m0 = carry
     q, k, v, logi, logf = qkv_if
     f32 = torch.float32
@@ -165,8 +164,6 @@ def _mlstm_chunk(carry, qkv_if, dh, grp=None, own=None):
     Mc = M[..., -1]
     wc = torch.exp(m0 - Mc)                              # (B,H)
     w_j = torch.exp(a - Mc[..., None])                   # (B,H,c)
-    own = own or (lambda t: t)
-    wc, C0, n0, w_j, kf, vf = (own(t) for t in (wc, C0, n0, w_j, kf, vf))
     C1 = wc[..., None, None] * C0 + torch.einsum(
         "bhjd,bhje->bhde", kf * w_j[..., None], vf)
     n1 = wc[..., None] * n0 + torch.einsum("bhj,bhjd->bhd", w_j, kf)
@@ -284,8 +281,11 @@ def mlstm_forward(p, x, num_heads, xcfg, *, chunk=128, state=None,
                                                   dh, conv0, split)
     hl, dk = q.shape[1], q.shape[3]
     # a mesh prefill runs the rank's heads' cells on every row
-    # (``tp.whole_batch``)
-    q, k, v, logi, logf = (tp.gather_batch(t, region)
+    # (``tp.whole_batch``), as the JAX step does; the "dh" cell stays on
+    # the rank's rows, where its block's sums move 1 / "data" of the
+    # bytes
+    rows = region and grp is None
+    q, k, v, logi, logf = (tp.gather_batch(t, rows)
                            for t in (q, k, v, logi, logf))
     B = q.shape[0]
     if chunk_fn is not None:
@@ -309,21 +309,15 @@ def mlstm_forward(p, x, num_heads, xcfg, *, chunk=128, state=None,
         if S % c:
             c = S
         carry, hs = (C0, n0, m0), []
-        # with the cell on every row (``tp.whole_batch``), the last chunk's
-        # C and n are needed on the rank's rows only: the JAX step's
-        # program of the "dh" form takes them there
-        own = tp.own_batch if grp is not None else None
         for i in range(S // c):
             sl = slice(i * c, (i + 1) * c)
             carry, h_c = _mlstm_chunk(
                 carry, (q[:, :, sl], k[:, :, sl], v[:, :, sl],
-                        logi[:, :, sl], logf[:, :, sl]), dh, grp,
-                own if i == S // c - 1 else None)
+                        logi[:, :, sl], logf[:, :, sl]), dh, grp)
             hs.append(h_c)
-        C1, n1 = (t if own else tp.own_batch(t, region) for t in carry[:2])
-        m1 = tp.own_batch(carry[2], region)
+        C1, n1, m1 = (tp.own_batch(t, rows) for t in carry)
         h = torch.cat(hs, dim=2).transpose(1, 2)         # (B,S,H,dh)
-    h = tp.own_batch(h, region)
+    h = tp.own_batch(h, rows)
     B = h.shape[0]
     h = _headwise_norm(h, _heads_of(p["norm_scale"], region), hl, grp=grp,
                        dh=dh)

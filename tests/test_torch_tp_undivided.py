@@ -1,6 +1,10 @@
 """The mesh steps split the sub-blocks whose heads "model" does not
 divide, on the CPU: reduced xlstm-350m and minicpm3-4b with one head and
-whisper-large-v3 with three, on the (2, 2) mesh ("model" of two ranks).
+whisper-large-v3 with three, on the (2, 2) mesh ("model" of two ranks:
+one head group on both ranks); and the three with two heads on the
+(1, 4) mesh ("model" of four ranks: two head groups, each on a block of
+two ranks with a process group of its own, as at (16, 16) where 4, 20
+or 40 heads make 4 or 8 groups).
 
 The mLSTM splits its cell on dh (each "model" rank a slice of the head's
 dh: partial q.k and n.q summed over the head's ranks, C and n in blocks
@@ -15,11 +19,14 @@ test makes (seeded):
     tests/torch_tp_workers.py --undivided IN.npz DIR``) and one dry-run
     process (``--dry-undivided OUT.json``, torch's fake process group);
   * the JAX package on 4 forced host devices: ``jax.jit(make_train_step,
-    in_shardings=...)`` of the same forms (``JAX_TRAIN``), and
+    in_shardings=...)`` of the same forms on the same meshes
+    (``JAX_TRAIN``), and
     ``hlo.analyze`` of their compiled (2, 2) train, prefill and decode
     steps (``JAX_FLOPS``).
 
 Cases:
+  * on (1, 4), each rank's head group, its place in its block and the
+    block's ranks (``tp.HeadGroups``);
   * training: 3 f32 steps (``grad_accum`` 2) against the JAX mesh step
     (loss and grad norm within 1e-4 relative, parameters and AdamW
     moments within 1e-5 x max(1, max |leaf|)) and against the port's
@@ -27,8 +34,9 @@ Cases:
     recurrence;
   * prefill and decode equal the plain steps within 1e-5 of the largest
     value, the caches placed by ``cache_shardings``;
-  * per-device dot FLOPs on a fake (2, 2) world (bf16, remat off; train
-    B=8 S=128, prefill and decode B=8 S=64) within 1 % of ``hlo.analyze``
+  * per-device dot FLOPs of the (2, 2) forms on a fake (2, 2) world
+    (bf16, remat off; train B=8 S=128, prefill and decode B=8 S=64)
+    within 1 % of ``hlo.analyze``
     of the JAX step, or, where the port does less, equal to its pinned
     count (``BELOW_JAX``, naming the sub-block).
 """
@@ -55,10 +63,17 @@ METRIC_RTOL = 1e-4
 STATE_TOL = 1e-5
 STEP_TOL = 1e-5
 FLOPS_TOL = 0.01
-ARCHS = W.UNDIVIDED_JAX_ARCHS
+FLOPS_ARCHS = W.UNDIVIDED_JAX_ARCHS
+ARCHS = FLOPS_ARCHS + W.UNDIVIDED_M4_ARCHS
+# the mesh each form runs on
+MESH = dict({a: "d2m2" for a in FLOPS_ARCHS},
+            **{a: W.MESH_M4[0] for a in W.UNDIVIDED_M4_ARCHS})
+MESH_SHAPES = {"d2m2": (2, 2), W.MESH_M4[0]: W.MESH_M4[1]}
 # what each form still computes whole on every "model" rank
 WHOLE = {"xlstm-350m-1h": ("slstm_recurrence",),
-         "minicpm3-4b-1h": (), "whisper-large-v3-3h": ()}
+         "minicpm3-4b-1h": (), "whisper-large-v3-3h": (),
+         "xlstm-350m-2h": ("slstm_recurrence",),
+         "minicpm3-4b-2h": (), "whisper-large-v3-2h": ()}
 # cells where the port does more than 1 % less than the JAX step: the
 # port's count, pinned, and the sub-block that does less
 BELOW_JAX = {
@@ -68,6 +83,10 @@ BELOW_JAX = {
     # (25,067,520 less); the other 4,194,304 are the mLSTM's, as in the
     # four-head form's -0.52 % (ROADMAP A14c)
     "xlstm-350m-1h/train": (1806761984, "sLSTM GLU"),
+    # JAX 326,926,336: its prefill runs the 7 mLSTM layers' cells on every
+    # row of the batch (both "data" ranks' rows); the port's "dh" cell
+    # keeps the rank's rows (``xlstm.mlstm_forward``), half of them
+    "xlstm-350m-1h/prefill": (253591552, "mLSTM cell"),
     # JAX 253,558,784 / 8,617,984: GSPMD runs MLA's attention whole on
     # both "model" ranks (the prefill's scores f32[4,64,64] a device);
     # the port's ranks each take half of its query rows
@@ -90,7 +109,7 @@ from repro.configs import get_reduced
 
 
 def config(arch):
-    n = {"-1h": 1, "-3h": 3}.get(arch[-3:])
+    n = {"-1h": 1, "-2h": 2, "-3h": 3}.get(arch[-3:])
     cfg = get_reduced(arch[:-3] if n else arch)
     if n:
         cfg = dataclasses.replace(cfg, num_heads=n, num_kv_heads=n)
@@ -116,8 +135,8 @@ def key(path):
     return "/".join(str(p.key) for p in path)
 
 
-mesh = make_mesh((2, 2), ("data", "model"))
-for arch in spec["archs"]:
+for arch, mkey, mshape in spec["cases"]:
+    mesh = make_mesh(tuple(mshape), ("data", "model"))
     cfg = config(arch)
     shape = ShapeConfig("tp", seq_len=s, global_batch=b, kind="train",
                         grad_accum=accum)
@@ -143,7 +162,7 @@ for arch in spec["archs"]:
                      for k in names_b}
             params, opt, m = fn(params, opt, batch)
             metrics.append((float(m["loss"]), float(m["grad_norm"])))
-    base = f"train/d2m2/{arch}"
+    base = f"train/{mkey}/{arch}"
     out[f"{base}/metrics"] = np.array(metrics)
     for name, tree in (("params", params), ("mu", opt["mu"]),
                        ("nu", opt["nu"])):
@@ -227,7 +246,7 @@ def procs(tmp_path_factory):
     inputs = d / "inputs.npz"
     _inputs(inputs)
     workers = os.path.join(ROOT, "tests", "torch_tp_workers.py")
-    spec = {"archs": list(ARCHS),
+    spec = {"cases": [[a, MESH[a], MESH_SHAPES[MESH[a]]] for a in ARCHS],
             "batch": [W.BATCH, W.SEQ, W.ACCUM, W.STEPS]}
     started = {
         "ranks": _start([sys.executable, workers, "--undivided", str(inputs),
@@ -236,7 +255,7 @@ def procs(tmp_path_factory):
                              json.dumps(spec), str(d / "jax_train.npz")],
                             JAX_ENV, d, "jax_train"),
         "jax_flops": _start([sys.executable, "-c", JAX_FLOPS,
-                             json.dumps(list(ARCHS)),
+                             json.dumps(list(FLOPS_ARCHS)),
                              json.dumps(W.FLOPS_SIZES)], JAX_ENV, d,
                             "jax_flops"),
         "dry": _start([sys.executable, workers, "--dry-undivided",
@@ -291,10 +310,23 @@ def _state_gaps(got, want, prefix_got, prefix_want):
     return out
 
 
+@pytest.mark.parametrize("arch", W.UNDIVIDED_M4_ARCHS)
+def test_undivided_head_groups_on_1x4(ranks, arch):
+    """Two head groups of a block of two ranks each: ranks 0 and 1 take
+    heads [0, 1) in the block {0, 1}, ranks 2 and 3 heads [1, 2) in the
+    block {2, 3}."""
+    key = f"groups/{W.MESH_M4[0]}/{arch}"
+    for r, res in enumerate(ranks):
+        index, j = divmod(r, 2)
+        assert res[f"{key}/layout"].tolist() == [2, 2, index, j, index,
+                                                 index + 1], r
+        assert res[f"{key}/block"].tolist() == [2 * index, 2 * index + 1]
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_undivided_train_steps_match_the_jax_mesh_step(ranks, jax_train,
                                                        arch):
-    base = f"train/d2m2/{arch}"
+    base = f"train/{MESH[arch]}/{arch}"
     for r, res in enumerate(ranks):
         np.testing.assert_allclose(res[f"{base}/metrics"],
                                    jax_train[f"{base}/metrics"],
@@ -308,7 +340,7 @@ def test_undivided_train_steps_match_the_jax_mesh_step(ranks, jax_train,
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_undivided_train_steps_match_the_plain_step(ranks, arch):
-    base = f"train/d2m2/{arch}"
+    base = f"train/{MESH[arch]}/{arch}"
     res = ranks[0]
     np.testing.assert_allclose(res[f"{base}/metrics"],
                                res[f"{base}/plain_metrics"], rtol=STEP_TOL,
@@ -322,7 +354,7 @@ def test_undivided_train_steps_match_the_plain_step(ranks, arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_undivided_prefill_and_decode_equal_the_plain_steps(ranks, arch):
-    key = f"steps/d2m2/{arch}"
+    key = f"steps/{MESH[arch]}/{arch}"
     for r, res in enumerate(ranks):
         for what in ("prefill_logits", "prefill_caches", "decode_logits",
                      "decode_caches"):
@@ -334,7 +366,7 @@ def test_undivided_prefill_and_decode_equal_the_plain_steps(ranks, arch):
 
 
 @pytest.mark.parametrize("kind", list(W.FLOPS_SIZES))
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", FLOPS_ARCHS)
 def test_undivided_dot_flops_on_2x2_against_jax(flops, arch, kind):
     want, got = flops
     key = f"{arch}/{kind}"

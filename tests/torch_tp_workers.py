@@ -49,8 +49,10 @@ and ``UNDIVIDED_ARCHS``, and unit checks of ``tp.halves`` and
     PYTHONPATH=src python tests/torch_tp_workers.py --dry-undivided OUT.json
 
 are those of ``tests/test_torch_tp_undivided.py``: the (2, 2) "train"
-and "steps" cases of ``UNDIVIDED_JAX_ARCHS``, and their (2, 2) dot FLOPs
-and collective bytes (``dry_undivided``).
+and "steps" cases of ``UNDIVIDED_JAX_ARCHS``, those of
+``UNDIVIDED_M4_ARCHS`` on the (1, 4) mesh ``MESH_M4`` (and the
+``tp.HeadGroups`` each rank sees there, "groups"), and the (2, 2) dot
+FLOPs and collective bytes (``dry_undivided``).
 """
 import dataclasses
 import os
@@ -74,6 +76,7 @@ MQA = "-mqa"
 # "...-1h" / "...-3h": one / three heads (and as many kv heads), which a
 # "model" of two ranks does not divide
 ONE_HEAD = "-1h"
+TWO_HEADS = "-2h"
 THREE_HEADS = "-3h"
 HOOK_ARCHS = ("yi-9b", "qwen3-moe-30b-a3b")
 # the mixers that the mesh steps split over "model" like the reference
@@ -85,6 +88,12 @@ UNDIVIDED_ARCHS = ("xlstm-350m-1h", "minicpm3-4b-1h")
 # the forms whose heads a "model" of two ranks does not divide, against
 # the JAX mesh step too (``tests/test_torch_tp_undivided.py``)
 UNDIVIDED_JAX_ARCHS = UNDIVIDED_ARCHS + ("whisper-large-v3-3h",)
+# on a "model" of four ranks, two heads make two head groups of a block
+# of two ranks each (g = 2, R = 2): the blocks' own process groups, the
+# second group's heads, and the mLSTM's dh halves within a block
+MESH_M4 = ("d1m4", (1, 4), ("data", "model"))
+UNDIVIDED_M4_ARCHS = ("xlstm-350m-2h", "minicpm3-4b-2h",
+                      "whisper-large-v3-2h")
 C15_ARCH = "qwen3-moe-30b-a3b"
 # the (2, 2) dot-FLOP cells (bf16, remat off): archs, and the (global
 # batch, seq_len) of each kind
@@ -98,15 +107,16 @@ LOSS_SHAPE, LOSS_VOCAB = (2, 8, 64), 50   # (B, S, padded vocab), vocab
 
 def config(arch):
     """The reduced config of ``arch`` (``MQA`` appended: one kv head;
-    ``ONE_HEAD`` / ``THREE_HEADS``: that many heads and kv heads);
+    ``ONE_HEAD`` / ``TWO_HEADS`` / ``THREE_HEADS``: that many heads and
+    kv heads);
     an MoE's capacity factor 8, so that no rank's dispatch drops a token
     (every path keeps all)."""
     from repro_torch.configs import get_reduced
     cfg = get_reduced(arch.removesuffix(MQA).removesuffix(ONE_HEAD)
-                      .removesuffix(THREE_HEADS))
+                      .removesuffix(TWO_HEADS).removesuffix(THREE_HEADS))
     if arch.endswith(MQA):
         cfg = dataclasses.replace(cfg, num_kv_heads=1)
-    for suffix, n in ((ONE_HEAD, 1), (THREE_HEADS, 3)):
+    for suffix, n in ((ONE_HEAD, 1), (TWO_HEADS, 2), (THREE_HEADS, 3)):
         if arch.endswith(suffix):
             cfg = dataclasses.replace(cfg, num_heads=n, num_kv_heads=n)
     if cfg.moe is not None:
@@ -502,11 +512,36 @@ def _mixers(inp, out, meshes):
     _shared_slice(out, meshes["d2m2"])
 
 
+def _head_groups(out, mkey, mesh, archs):
+    """The ``tp.HeadGroups`` of each arch's heads as this rank sees it on
+    ``mesh``: (g, R, index, j, the first and last head of its group) and
+    the global ranks of its block's process group."""
+    from repro_torch.models import tp
+    from repro_torch.sharding_ctx import use_mesh
+
+    with use_mesh(mesh):
+        for arch in archs:
+            grp = tp.HeadGroups(config(arch).num_heads)
+            key = f"groups/{mkey}/{arch}"
+            out[f"{key}/layout"] = np.array(
+                [grp.g, grp.R, grp.index, grp.j, grp.heads.start,
+                 grp.heads.stop])
+            out[f"{key}/block"] = np.array(
+                dist.get_process_group_ranks(grp.group))
+
+
 def _undivided(inp, out, meshes):
     """The cases of ``tests/test_torch_tp_undivided.py``."""
+    from repro_torch.sharding_ctx import make_mesh
+
     mesh = {"d2m2": meshes["d2m2"]}
     _train(inp, out, mesh, UNDIVIDED_JAX_ARCHS)
     _steps(out, mesh, UNDIVIDED_JAX_ARCHS)
+    mkey, shape, names = MESH_M4
+    m4 = {mkey: make_mesh(shape, names, "cpu")}
+    _head_groups(out, mkey, m4[mkey], UNDIVIDED_M4_ARCHS)
+    _train(inp, out, m4, UNDIVIDED_M4_ARCHS)
+    _steps(out, m4, UNDIVIDED_M4_ARCHS)
 
 
 def _rank(rank, inputs, out_dir, mode="all"):
